@@ -1,0 +1,218 @@
+"""Configuration dataclasses for architectures, input shapes, and execution.
+
+A copy of ``repro.configs.base`` (the port imports nothing from ``repro``).
+Differences: ``RunConfig.attention_impl`` names the port's two paths, and the
+sharding resolvers are left to the sharding slice.
+
+Three layers of configuration, mirroring the paper's separation between the
+*job* (what runs) and the *tunable platform parameters* (how it runs):
+
+  - ``ArchConfig``  — the model architecture (fixed per assigned arch).
+  - ``ShapeConfig`` — the input shape cell (train_4k / prefill_32k / ...).
+  - ``RunConfig``   — the execution-layer knobs; this is the search space the
+    paper's tuning algorithms (GSFT / CRS) operate on.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+VOCAB_PAD_MULTIPLE = 256  # vocab tables are padded so the 16-way model axis divides
+
+
+def pad_vocab(v: int) -> int:
+    return ((v + VOCAB_PAD_MULTIPLE - 1) // VOCAB_PAD_MULTIPLE) * VOCAB_PAD_MULTIPLE
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """Architecture definition. ``block_pattern`` / ``moe_pattern`` are cyclic
+    per-layer patterns (cycled up to ``num_layers``)."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # Per-layer cyclic patterns.
+    block_pattern: Tuple[str, ...] = ("attn",)  # attn | attn_local | mamba | rwkv
+    moe_pattern: Tuple[bool, ...] = (False,)
+
+    # Attention details.
+    sliding_window: int = 4096  # used by attn_local entries
+    qkv_bias: bool = False
+    attn_logit_softcap: float = 0.0  # 0 disables
+    final_logit_softcap: float = 0.0
+    rope_theta: float = 10000.0
+
+    # MoE.
+    num_experts: int = 0
+    experts_per_token: int = 0
+    d_ff_expert: int = 0  # 0 -> d_ff
+    moe_capacity_factor: float = 1.25
+
+    # SSM (mamba) / RWKV dims.
+    ssm_state_dim: int = 16
+    ssm_conv_width: int = 4
+    ssm_expand: int = 2
+    rwkv_head_dim: int = 64
+
+    # Encoder/decoder + modality frontend stubs.
+    encoder_layers: int = 0  # >0 => encoder-decoder; num_layers is the decoder
+    frontend: Optional[str] = None  # vision | audio
+    frontend_seq: int = 0  # patches / frames provided by the (stub) frontend
+
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    # Which shape cells are inapplicable for this arch (documented in DESIGN.md).
+    skip_shapes: Tuple[str, ...] = ()
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_vocab(self.vocab_size)
+
+    def layer_kinds(self) -> Tuple[Tuple[str, bool], ...]:
+        """Per-layer (kind, is_moe) for all num_layers layers."""
+        out = []
+        for i in range(self.num_layers):
+            kind = self.block_pattern[i % len(self.block_pattern)]
+            is_moe = bool(self.moe_pattern[i % len(self.moe_pattern)]) and self.num_experts > 0
+            out.append((kind, is_moe))
+        return tuple(out)
+
+    @property
+    def period(self) -> int:
+        """Length of the repeating layer-pattern unit (for scan-over-periods)."""
+        p = _lcm(len(self.block_pattern), len(self.moe_pattern))
+        return min(p, self.num_layers)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (unpadded vocab)."""
+        d, dh = self.d_model, self.resolved_head_dim
+        total = self.vocab_size * d  # embedding
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        for kind, is_moe in self.layer_kinds():
+            if kind in ("attn", "attn_local"):
+                total += d * self.num_heads * dh * 2  # q, o
+                total += d * self.num_kv_heads * dh * 2  # k, v
+                if self.qkv_bias:
+                    total += (self.num_heads + 2 * self.num_kv_heads) * dh
+            elif kind == "mamba":
+                di = self.ssm_expand * d
+                n = self.ssm_state_dim
+                total += d * di * 2  # in_proj (x, gate)
+                total += di * self.ssm_conv_width
+                total += di * (2 * n + 1) + di  # B,C,dt proj + dt bias (low-rank-ish)
+                total += di * n + di  # A, D
+                total += di * d  # out proj
+            elif kind == "rwkv":
+                total += d * d * 5  # r,k,v,g,o (time mix)
+                total += d * 2 + 64 * d * 2  # decay lora-ish
+            if kind != "rwkv":
+                ff = (self.d_ff_expert or self.d_ff) if is_moe else self.d_ff
+                n_ff = self.num_experts if is_moe else 1
+                total += n_ff * 3 * d * ff  # gated MLP
+                if is_moe:
+                    total += d * self.num_experts  # router
+            else:
+                total += 2 * d * self.d_ff  # rwkv channel mix (k, v) + recept.
+                total += d * d
+            total += 2 * d  # norms
+        if self.encoder_layers:
+            # encoder self-attn+mlp, decoder cross-attn (approx: same block cost)
+            per_attn_layer = d * self.num_heads * dh * 2 + d * self.num_kv_heads * dh * 2 + 3 * d * self.d_ff + 2 * d
+            total += self.encoder_layers * per_attn_layer
+            total += self.num_layers * (d * self.num_heads * dh * 2 + d * self.num_kv_heads * dh * 2 + d)
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        d = self.d_model
+        ff = self.d_ff_expert or self.d_ff
+        total = self.param_count()
+        n_moe_layers = sum(1 for _, m in self.layer_kinds() if m)
+        inactive = n_moe_layers * (self.num_experts - self.experts_per_token) * 3 * d * ff
+        return total - inactive
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+# The four assigned LM shape cells.
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Execution-layer configuration — the tunable space (paper §III analog).
+
+    Training knobs (12, the "Hadoop side") and serving knobs (11, the "Spark
+    side") share this dataclass; the reference's ``core/space.py`` declares
+    which fields are exposed to each platform with defaults + bounded ranges.
+    """
+
+    # --- training knobs ---
+    mesh_model_parallel: int = 16       # ICI model-axis size (data = chips // model)
+    microbatch_size: int = 0            # 0 = no gradient accumulation
+    remat_policy: str = "full"          # none | dots | full
+    attn_block_q: int = 512
+    attn_block_kv: int = 512
+    matmul_precision: str = "bf16"      # bf16 | f32 (activation/accum dtype policy)
+    grad_compression: str = "off"       # off | int8 (cross-pod error-feedback)
+    scan_layers: bool = True            # False = unrolled (exact cost analysis)
+    zero_sharding: str = "fsdp"         # none | zero1 | fsdp
+    collective_matmul: str = "ag"       # ag (Megatron) | rs (sequence-parallel residual)
+    moe_expert_parallel: bool = True    # True = EP (experts over model axis); False = expert-TP
+    optimizer_moment_dtype: str = "float32"  # float32 | bfloat16
+
+    # --- serving knobs ---
+    kv_cache_dtype: str = "bfloat16"    # bfloat16 | int8
+    prefill_chunk: int = 0              # 0 = single-shot prefill
+    decode_batch_partition: str = "data"  # data | model | both
+    kv_partition: str = "auto"          # auto | heads | sequence
+    weight_dtype: str = "bfloat16"      # bfloat16 | int8 (serving weights)
+    max_concurrent_decodes: int = 0     # 0 = batch size (serving scheduler bound)
+
+    # --- structural (not tuned; set per environment) ---
+    # torch | kernel. "torch" is the blockwise online softmax in torch ops
+    # (the reference's "xla"); "kernel" is the hand-written CUDA flash kernel
+    # (the reference's "pallas"). The field is structural, set per
+    # environment, and this environment is the H100: hence "kernel".
+    attention_impl: str = "kernel"
+    embed_impl: str = "gather"          # gather | one_hot (matmul; scatter-free bwd)
+    attn_partition: str = "auto"        # auto | heads | sequence | replicated
+    param_dtype: str = "float32"        # master weights
+    compute_dtype: str = "bfloat16"
+    gradient_clip: float = 1.0
+    learning_rate: float = 3e-4
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
