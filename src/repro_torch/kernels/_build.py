@@ -9,7 +9,8 @@ a plain C interface::
 
 The libraries go to ``build/repro_torch/`` at the repository root, named by
 a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. ``torch.utils.cpp_extension.load`` is not used: a
+unchanged one is reused. The package must therefore run from a source
+checkout (``src/repro_torch``); an installed copy raises at build time. ``torch.utils.cpp_extension.load`` is not used: a
 source that includes PyTorch's headers takes minutes to compile, a plain C
 one seconds.
 
@@ -26,10 +27,19 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 KERNELS_DIR = Path(__file__).resolve().parent
-BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
+
+
+def checkout_build_dir(kernels_dir: Path) -> Optional[Path]:
+    """``<checkout>/build/repro_torch`` when ``kernels_dir`` is
+    ``<checkout>/src/repro_torch/kernels``, else None (an installed copy)."""
+    src = kernels_dir.parents[1]
+    return src.parent / "build" / "repro_torch" if src.name == "src" else None
+
+
+BUILD_DIR = checkout_build_dir(KERNELS_DIR)
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default prefix
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,6 +82,12 @@ def _target(stem: str, src: Path) -> Path:
 def build_all() -> Dict[str, Path]:
     """Compile every source whose library is missing, in parallel; return
     ``{stem: library path}``. Raises on the first failed compile."""
+    if BUILD_DIR is None:
+        raise RuntimeError(
+            f"repro_torch builds its CUDA kernels into build/ of a source "
+            f"checkout, but {KERNELS_DIR} is not under <checkout>/src: run it "
+            f"from a checkout with PYTHONPATH=src"
+        )
     todo, out = {}, {}
     for stem, src in sources().items():
         out[stem] = _target(stem, src)

@@ -128,7 +128,9 @@ def attention(
 
 def attention_reference(q, k, v, *, q_positions, kv_length=None, causal=True,
                         window=0, softcap_val=0.0):
-    """Naive O(S·T) oracle used by tests."""
+    """Naive O(S·T) oracle with :func:`attention`'s signature (positions,
+    per-batch ``kv_length``, scalar-tensor windows); the tests hold both
+    impls of :func:`attention` against it."""
     b, s, hq, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv

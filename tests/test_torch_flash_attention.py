@@ -6,7 +6,7 @@ and through the port's ``ops.flash_attention``, which on CPU tensors runs the
 kernel's plain torch version. Tolerances are the reference's numerics gate
 (``core/kernel_tune.py``): ``max|a-b| / max|ref|`` below 1e-4 at f32 and
 3e-2 at bf16. The CUDA kernel itself is held against the plain version on
-the card by ``chip_smoke.py`` and by the ``gpu``-marked test below.
+the card by ``chip_smoke.py`` and by ``tests/test_torch_kernel_card.py``.
 """
 import ctypes
 import json
@@ -245,22 +245,3 @@ def test_cpu_path_never_builds_or_loads(monkeypatch):
     out = ops.flash_attention(tq, tk, tv, window=32, softcap_val=20.0)
     assert torch.isfinite(out.float()).all()
     assert fa_kernel.LAUNCHES == before  # the plain version is not a launch
-
-
-# ------------------------------------------------------------------ on card
-
-
-@pytest.mark.gpu
-def test_kernel_matches_plain_on_gpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card: see README)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    for dtype in ("float32", "bfloat16"):
-        _, (tq, tk, tv) = _inputs(5, 2, 200, 8, 2, 64, dtype)
-        tq, tk, tv = (x.cuda() for x in (tq, tk, tv))
-        before = fa_kernel.LAUNCHES
-        out = ops.flash_attention(tq, tk, tv, window=64, softcap_val=30.0)
-        assert fa_kernel.LAUNCHES == before + 1
-        plain = fa_kernel.flash_attention_plain(tq, tk, tv, window=64, softcap=30.0,
-                                                scale=1.0)
-        assert _rel(out, plain) < TOL[dtype]

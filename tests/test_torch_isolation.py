@@ -69,6 +69,20 @@ def test_build_raises_without_nvcc(monkeypatch):
         _build.build_all()
 
 
+def test_build_dir_is_the_checkouts(monkeypatch):
+    """Libraries land in build/ of a source checkout; an installed copy of
+    the package has none, and its first build raises instead of writing
+    beside site-packages."""
+    from repro_torch.kernels import _build
+
+    assert _build.BUILD_DIR == REPO / "build" / "repro_torch"
+    installed = Path("/venv/lib/python3.12/site-packages/repro_torch/kernels")
+    assert _build.checkout_build_dir(installed) is None
+    monkeypatch.setattr(_build, "BUILD_DIR", None)
+    with pytest.raises(RuntimeError, match="source checkout"):
+        _build.build_all()
+
+
 @pytest.fixture
 def fake_nvcc(tmp_path, monkeypatch):
     """A stand-in nvcc (a shell script) plus a private source and build dir:
