@@ -14,10 +14,25 @@ Phases (any failure raises and the script exits non-zero):
      version's and SDPA's times (CUDA events), and the bound: the larger of
      the matmul operations over the card's peak for the input type and the
      bytes (q, k, v read once, o written once) over its memory rate;
-  3. small-input check: the smoke llama served on the card through the
+  3. ssm kernel phase: the selective-scan kernel against its plain torch
+     version on the card, element by element (``PLAIN_TOL``), at every
+     compiled state size N, f32 and bf16, a ragged sequence, d_block above
+     di, and the full-width Jamba-1.5-Large cell (B1 S4096 di16384 N16,
+     bf16) with the kernel's and the plain version's times and the bound
+     (bytes over the memory rate against f32 operations over the CUDA-core
+     peak), beside the exponentials' own term;
+  4. small-input check: the smoke llama served on the card through the
      kernel gives the same greedy tokens as on the CPU through the plain
      version, at f32;
-  4. serve phase: ``launch/serve.py``'s offline path on full-width
+  5. tuning phase: ``launch/kernel_tune.py``'s ``main`` (the port's CLI) on
+     a temporary study and table: GSFT over the flash tiles at the serve
+     shape, CRS over the selective scan at the Jamba cell. The launch
+     counters are zeroed just before and read just after: each kernel must
+     have launched at least once per fresh trial. A warm re-run must measure
+     nothing fresh, and with the written table named by
+     ``REPRO_TORCH_KERNEL_TUNED_TABLE`` a knob-less ``selective_scan`` must
+     launch the tuned config. The environment is restored afterwards;
+  6. serve phase: ``launch/serve.py``'s offline path on full-width
      llama3.2-1b (bf16 weights from a seeded generator), batch 4, prompt
      2048, 32 new tokens, attention through the kernel. The launch counters
      are zeroed just before and read just after: the kernel must have run
@@ -25,6 +40,10 @@ Phases (any failure raises and the script exits non-zero):
      is held element-wise (``PLAIN_TOL``) against the plain version on the
      same q/k/v, the model's own activations. The last-token prefill logits
      must be finite and agree with the torch attention path.
+
+The launch counts in the kernels' record are those of each kernel's main
+path: flash_fwd's from the serve phase (slice 1), ssm_scan's from the tuning
+phase, the only path of the port that reaches it (as in the reference).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -37,6 +56,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -58,6 +78,31 @@ TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 PLAIN_TOL = {"bfloat16": (2.0**-7, 1e-6), "float32": (1e-5, 1e-6)}
 SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
 REPLACES = "src/repro/kernels/flash_attention/kernel.py:117"
+SSM_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
+SSM_REPLACES = "src/repro/kernels/ssm_scan/kernel.py:48"
+# exp runs on the special-function units: 16 per SM per clock, 132 SMs at
+# the 1.98 GHz boost clock (NVIDIA's H100 SXM data sheet and white paper)
+EXP_PER_S = 16 * 132 * 1.98e9
+
+# name, B, S, di, N, dtype, chunk, d_block: every compiled N, both dtypes, a
+# ragged last chunk, d_block above di (and not dividing it), the shared-memory
+# opt-in above 48 KB, and the full-width Jamba-1.5-Large cell (d_model 8192 x
+# ssm_expand 2, state 16)
+SSM_CASES = [
+    ("n4_ragged", 2, 1000, 96, 4, "bfloat16", 64, 32),
+    ("n4_f32", 1, 300, 64, 4, "float32", 256, 1024),
+    ("n8_dblock_past_di", 1, 100, 48, 8, "float32", 16, 1024),
+    ("n8_bf16", 2, 257, 160, 8, "bfloat16", 32, 128),
+    ("n16_unaligned", 2, 300, 200, 16, "bfloat16", 128, 96),
+    ("n32_f32", 1, 257, 128, 32, "float32", 256, 64),
+    ("n32_bf16", 1, 200, 96, 32, "bfloat16", 16, 32),
+    ("n64_smem_optin", 1, 300, 64, 64, "bfloat16", 256, 128),
+    ("n64_f32", 1, 150, 100, 64, "float32", 128, 1024),
+    ("jamba_full", 1, 4096, 16384, 16, "bfloat16", 128, 256),
+]
+# the tuning phase's cells (kernel_tune's x-separated shapes)
+FLASH_TUNE_SHAPE = "4x2048x32x8x64"
+SSM_TUNE_SHAPE = "1x4096x16384x16"
 
 # name, B, S, Hq, Hkv, dh, causal, window, softcap, kv_length, dtype, block_q, block_kv
 CASES = [
@@ -176,6 +221,170 @@ def kernel_phase(torch, device):
         records[name] = rec
         print(f"kernel {name}: {json.dumps(rec)}", flush=True)
     return records
+
+
+def ssm_inputs(torch, gen, b, s, di, n, dtype, device):
+    """The kernel tuner's distributions: softplus Δ, N(0,1) u, B and C, and
+    A = -exp(0.3·z)."""
+    dt = getattr(torch, dtype)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    return [torch.nn.functional.softplus(normal(b, s, di)).to(dt), normal(b, s, di).to(dt),
+            normal(b, s, n).to(dt), normal(b, s, n).to(dt),
+            (-torch.exp(0.3 * normal(di, n))).to(dt)]
+
+
+def ssm_phase(torch, device):
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+
+    records = {}
+    gen = torch.Generator(device=device).manual_seed(1)
+    for name, b, s, di, n, dtype, chunk, d_block in SSM_CASES:
+        x = ssm_inputs(torch, gen, b, s, di, n, dtype, device)
+        run_kernel = lambda: ssm_kernel.ssm_scan(*x, chunk=chunk, d_block=d_block)
+        before = ssm_kernel.LAUNCHES
+        out = run_kernel()
+        torch.cuda.synchronize()
+        if ssm_kernel.LAUNCHES != before + 1:
+            raise AssertionError(f"ssm {name}: the kernel was not launched")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = ssm_kernel.ssm_scan_plain(*x)
+        end.record()
+        torch.cuda.synchronize()
+        diff = (out.float() - plain.float()).abs().max().item()
+        excess = tol_excess(out, plain, *PLAIN_TOL[dtype])
+        rec = dict(chunk=chunk, d_block=d_block, tol_excess=excess,
+                   rel_to_max=rel_to_max(out, plain), max_abs_err=diff)
+        if out.shape != (b, s, di) or not torch.isfinite(out.float()).all() or not excess <= 1.0:
+            raise AssertionError(
+                f"ssm {name}: kernel vs plain exceeds |a-b| <= rtol*|plain| + atol "
+                f"{PLAIN_TOL[dtype]} by {excess}x (max abs err {diff})")
+        if name == "jamba_full":
+            elem = out.element_size()
+            nbytes = (3 * b * s * di + 2 * b * s * n + di * n) * elem
+            flops = b * s * di * (6 * n + 1)  # dt*a, e*h, du*b, +, h*c, + per n; dt*u
+            exps = b * s * di * n
+            t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+            rec.update(ms=cuda_ms(run_kernel, iters=10), plain_ms=start.elapsed_time(end),
+                       library_ms=None, bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       bytes=nbytes, gflop=flops / 1e9, exp_calls=exps,
+                       exp_sfu_ms=exps / EXP_PER_S * 1e3)
+        records[name] = rec
+        print(f"ssm kernel {name} (B{b} S{s} di{di} N{n} {dtype}): {json.dumps(rec)}",
+              flush=True)
+    print("ssm_scan library_ms: none (no single PyTorch call computes a selective scan)",
+          flush=True)
+    return records
+
+
+def _measured_trials(study_dir: Path, platform: str):
+    """The cell's measured trials from the study's trial log, in order:
+    config, best-of-repeats ms, spread (slowest minus fastest repeat) ms,
+    and the gate's tol_excess."""
+    out = []
+    for line in (study_dir / "trials.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["platform"] == platform and not rec["cached"]:  # measured, not replayed
+            if rec["status"] != "ok" or rec["info"].get("numerics_mismatch"):
+                raise AssertionError(f"{platform}: trial failed: {rec}")
+            out.append(dict(tag=rec["tag"], config=rec["config"], ms=rec["time_s"] * 1e3,
+                            spread_ms=rec["info"]["spread_s"] * 1e3,
+                            tol_excess=rec["info"]["tol_excess"]))
+    return out
+
+
+def tuning_phase(torch, device, scratch: Path):
+    """The kernel tuner's CLI on the card: GSFT over the flash tiles, CRS
+    over the selective scan, a warm re-run, and the table read back."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.launch import kernel_tune
+
+    study, table = scratch / "study", scratch / "tuned_table.json"
+    runs = [
+        ("flash_fwd", fa_kernel, ["--kernel", "flash_attention", "--shapes", FLASH_TUNE_SHAPE,
+                                  "--dtype", "bf16", "--strategy", "gsft", "--repeats", "5"]),
+        ("ssm_scan", ssm_kernel, ["--kernel", "ssm_scan", "--shapes", SSM_TUNE_SHAPE,
+                                  "--dtype", "bf16", "--strategy", "crs", "--m", "6", "--k",
+                                  "2", "--rounds", "2", "--repeats", "3"]),
+    ]
+
+    def tune(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = kernel_tune.main(argv + ["--study", str(study), "--write-table", str(table)])
+        if rc != 0:
+            raise AssertionError(f"kernel_tune {argv} exited {rc}")
+        return json.loads(buf.getvalue())
+
+    launches = {}
+    for name, module, argv in runs:
+        fa_kernel.LAUNCHES = ssm_kernel.LAUNCHES = 0
+        report = tune(argv)
+        launches[name] = module.LAUNCHES
+        (platform, cell), = report["cells"].items()
+        fresh = report["cache_stats"]["fresh"]
+        if not fresh or module.LAUNCHES < fresh:
+            raise AssertionError(f"tune {name}: {module.LAUNCHES} launches for {fresh} "
+                                 f"fresh trials")
+        if not cell["best_time_s"] < float("inf") or not cell["best_config"]:
+            raise AssertionError(f"tune {name}: no feasible incumbent: {cell}")
+        trials = _measured_trials(study, platform)
+        spread = {json.dumps(t["config"], sort_keys=True): t["spread_ms"] for t in trials}
+        rec = dict(platform=platform, default_ms=cell["default_time_s"] * 1e3,
+                   default_spread_ms=next(t["spread_ms"] for t in trials
+                                          if t["tag"] == "default"),
+                   best_ms=cell["best_time_s"] * 1e3, reduction_pct=cell["reduction_pct"],
+                   best_config=cell["best_config"],
+                   best_spread_ms=spread[json.dumps(cell["best_config"], sort_keys=True)],
+                   evaluations=cell["evaluations"], cache=report["cache_stats"],
+                   launches=module.LAUNCHES, trials=trials)
+        print(f"tune {name} cold: {json.dumps(rec)}", flush=True)
+    for name, module, argv in runs:
+        before = module.LAUNCHES
+        report = tune(argv)
+        if report["cache_stats"]["fresh"] != 0 or module.LAUNCHES != before:
+            raise AssertionError(f"tune {name} warm re-run measured again: "
+                                 f"{report['cache_stats']}")
+        print(f"tune {name} warm: cache {json.dumps(report['cache_stats'])}", flush=True)
+
+    entries = json.loads(table.read_text())["entries"]
+    b, s, di, n = (int(d) for d in SSM_TUNE_SHAPE.split("x"))
+    want = entries[kernels.table_key("ssm_scan", "bf16",
+                                     kernels.ssm_shape_class((b, s, di), n))]["config"]
+    saved = os.environ.get(kernels.TUNED_TABLE_ENV)
+    os.environ[kernels.TUNED_TABLE_ENV] = str(table)
+    kernels.invalidate_tuned_table_cache()
+    try:
+        x = ssm_inputs(torch, torch.Generator(device=device).manual_seed(2), b, s, di, n,
+                       "bfloat16", device)
+        y = ssm_ops.selective_scan(*x)
+        torch.cuda.synchronize()
+    finally:
+        if saved is None:
+            os.environ.pop(kernels.TUNED_TABLE_ENV, None)
+        else:
+            os.environ[kernels.TUNED_TABLE_ENV] = saved
+        kernels.invalidate_tuned_table_cache()
+    expect = {"chunk": ssm_ops.snap_chunk(want["chunk"], s),
+              "d_block": ssm_ops.snap_d_block(want["d_block"], di)}
+    if ssm_kernel.LAST_LAUNCH != expect or not torch.isfinite(y.float()).all():
+        raise AssertionError(f"selective_scan with no knobs launched "
+                             f"{ssm_kernel.LAST_LAUNCH}, the table holds {want}")
+    print(f"tuned table round trip: selective_scan with no knobs launched "
+          f"{json.dumps(ssm_kernel.LAST_LAUNCH)} from the table", flush=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def small_input_phase(torch, device):
@@ -320,16 +529,28 @@ def main() -> int:
              f"{spills} bytes of spill stores" if regs else " (cached)"), flush=True)
 
     records = kernel_phase(torch, device)
+    ssm_records = ssm_phase(torch, device)
     small_input_phase(torch, device)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_", dir=ROOT / "build") as scratch:
+        tune_launches = tuning_phase(torch, device, Path(scratch))
     launches = serve_phase(torch, device)
+    print(f"launches: serve path flash_fwd {launches}; tuning path "
+          f"{json.dumps(tune_launches)}", flush=True)
 
-    serve_rec = records["serve"]
+    serve_rec, ssm_rec = records["serve"], ssm_records["jamba_full"]
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": launches, "max_abs_err": serve_rec["max_abs_err"],
         "ms": serve_rec["ms"], "plain_ms": serve_rec["plain_ms"],
         "bound_ms": serve_rec["bound_ms"], "bound_by": serve_rec["bound_by"],
         "library_ms": serve_rec["library_ms"],
+    }, {
+        "name": "ssm_scan", "route": "cuda", "source": SSM_SOURCE, "replaces": SSM_REPLACES,
+        "launches": tune_launches["ssm_scan"], "max_abs_err": ssm_rec["max_abs_err"],
+        "ms": ssm_rec["ms"], "plain_ms": ssm_rec["plain_ms"],
+        "bound_ms": ssm_rec["bound_ms"], "bound_by": ssm_rec["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,780 @@
+"""Execution backends for :class:`repro_torch.core.scheduler.TrialScheduler` — the
+per-trial isolation seam.
+
+The paper's CMPE restarts the Hadoop/Spark daemons between trials precisely
+because a bad configuration can wedge the job. The scheduler's thread path
+cannot reproduce that guarantee: Python threads cannot be killed, so a hung
+trial keeps its core and memory until interpreter exit ("soft" timeout).
+This module makes isolation pluggable:
+
+  - ``InlineBackend``   (``isolation="inline"``, the default) — the original
+    in-process path: serial or thread-pool evaluation, soft timeouts. Fast,
+    zero setup cost, byte-for-byte compatible logs.
+  - ``SubprocessBackend`` (``isolation="subprocess"``) — each fresh trial runs
+    in a long-lived **worker process** built from a picklable
+    :class:`EvaluatorSpec`. The deadline is *hard*: a trial that overruns
+    ``timeout_s`` gets SIGKILLed and reaped, a segfaulting / ``os._exit``-ing
+    / OOM-killed trial becomes a ``status="error"`` Trial instead of a dead
+    tuning session, and workers are **reused warm** across trials and batches
+    so device/jit initialisation is paid once per worker, not per trial.
+
+Both backends expose two execution paths: the round-batched ``run_batch``
+(one fidelity per batch, returns in plan order) and the streaming
+``submit``/``poll`` pair the scheduler's async seam drives (results come
+back the moment each trial finishes — what ASHA's no-barrier promotion
+rides on). Per-trial deadlines are **rung-scaled**: a trial at fidelity
+``f`` gets ``timeout_s × f``, so a hung rung-0 probe dies on the short
+deadline, not the full-fidelity one.
+
+Worker protocol (one duplex pipe per worker):
+
+    parent -> worker   ("run", seq, config, clear_caches, fidelity) | ("exit",)
+    worker -> parent   ("ready", pid)
+                       ("init_error", message)
+                       ("ok", seq, time_s, scalar_info, eval_wall_s)
+                       ("err", seq, message, eval_wall_s)
+
+Device pinning (``pin_devices=N``): worker *i* is restricted to one device —
+slot ``i % N`` — by environment variables applied at the top of the worker
+process **before** the evaluator spec resolves (and therefore before the
+worker's first ``import jax``; jax reads ``CUDA_VISIBLE_DEVICES`` /
+``JAX_PLATFORMS`` / ``XLA_FLAGS`` once, at backend init). N workers then run
+N truly concurrent trials instead of serializing on device 0. A guard after
+evaluator construction checks ``len(jax.devices()) == 1`` and fails worker
+init loudly if the pin didn't take (e.g. a ``fork`` context after jax was
+already imported — the env change lands too late to matter).
+
+A worker that vanishes mid-trial surfaces as EOF on its pipe; the parent
+reaps it, records the trial, and respawns a replacement lazily. Because
+worker processes isolate all global compiler state, the subprocess backend
+runs ``parallel_safe=False`` evaluators (e.g. ``RooflineEvaluator``)
+concurrently — the flag only constrains the shared-interpreter thread path.
+"""
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import pickle
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from importlib import import_module
+from multiprocessing.connection import wait as _mp_wait
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+from repro_torch.core.scheduler import Trial, _scalar_info, call_evaluator
+
+__all__ = [
+    "EvaluatorSpec",
+    "ExecutionBackend",
+    "InlineBackend",
+    "SubprocessBackend",
+    "make_backend",
+]
+
+
+# ---------------------------------------------------------------- spec layer
+
+
+@dataclass
+class EvaluatorSpec:
+    """Picklable recipe for constructing an Evaluator inside a worker.
+
+    ``target`` is either a ``"pkg.module:attr"`` dotted path (resolved by
+    import in the worker — survives any start method) or a picklable
+    callable. With ``construct=True`` the resolved object is called as
+    ``target(*args, **kwargs)`` and must return an Evaluator; with
+    ``construct=False`` the resolved object *is* the evaluator (the pickled
+    instance round-trips as-is).
+    """
+
+    target: Union[str, Callable[..., Any]]
+    args: Tuple[Any, ...] = ()
+    kwargs: Dict[str, Any] = field(default_factory=dict)
+    construct: bool = True
+
+    @classmethod
+    def factory(cls, target: Union[str, Callable[..., Any]], *args: Any,
+                **kwargs: Any) -> "EvaluatorSpec":
+        """Spec that calls ``target(*args, **kwargs)`` in the worker."""
+        return cls(target=target, args=args, kwargs=kwargs, construct=True)
+
+    @classmethod
+    def from_evaluator(cls, evaluator: Any) -> "EvaluatorSpec":
+        """Best spec for an evaluator instance: its attached ``.spec`` if it
+        carries one, else the pickled instance itself."""
+        spec = getattr(evaluator, "spec", None)
+        if isinstance(spec, EvaluatorSpec):
+            return spec
+        try:
+            pickle.dumps(evaluator)
+        except Exception as e:  # noqa: BLE001 — reported with guidance
+            raise TypeError(
+                f"{type(evaluator).__name__} cannot be shipped to a worker "
+                f"process (pickle failed: {e}). Attach a spec — e.g. "
+                "evaluator.spec = EvaluatorSpec.factory('pkg.mod:make_evaluator', "
+                "...) — or use isolation='inline'."
+            ) from e
+        return cls(target=evaluator, construct=False)
+
+    def resolve(self) -> Any:
+        obj = self.target
+        if isinstance(obj, str):
+            mod, _, attr = obj.partition(":")
+            if not attr:
+                raise ValueError(
+                    f"EvaluatorSpec target must be 'pkg.module:attr', got {obj!r}"
+                )
+            obj = getattr(import_module(mod), attr)
+        if not self.construct:
+            return obj
+        return obj(*self.args, **dict(self.kwargs))
+
+
+# ----------------------------------------------------------- device pinning
+
+
+def _device_pin_env(slot: int, pin_devices: int) -> Dict[str, str]:
+    """Env vars restricting one worker to one device (slot ``slot``).
+
+    Computed parent-side (so it sees the parent's device-visibility env) but
+    applied worker-side before jax is imported. Mechanism by platform:
+
+    - CUDA/ROCm: narrow ``CUDA_VISIBLE_DEVICES`` to the slot's entry (keeps
+      the parent's explicit ordering when it set a list), so the worker's
+      device 0 *is* physical device ``slot``.
+    - TPU: one chip per process via the megacore-style bounds vars.
+    - CPU (this container, and any JAX_PLATFORMS=cpu run): a single host
+      device per worker — each worker is its own "chip".
+    """
+    cuda = os.environ.get("CUDA_VISIBLE_DEVICES", "").strip()
+    plat = os.environ.get("JAX_PLATFORMS", "").split(",")[0].strip().lower()
+    if cuda and cuda != "-1":
+        ids = [s.strip() for s in cuda.split(",") if s.strip()]
+        return {"CUDA_VISIBLE_DEVICES": ids[slot % len(ids)]}
+    if plat in ("cuda", "gpu", "rocm"):
+        return {"CUDA_VISIBLE_DEVICES": str(slot)}
+    if plat == "tpu" or os.environ.get("TPU_WORKER_ID") is not None:
+        return {
+            "TPU_VISIBLE_CHIPS": str(slot),
+            "TPU_PROCESS_BOUNDS": "1,1,1",
+            "TPU_CHIPS_PER_PROCESS_BOUNDS": "1,1,1",
+        }
+    # CPU fallback: force the host platform with exactly one device, dropping
+    # any inherited multi-device override (e.g. the roofline driver's 512)
+    xla = os.environ.get("XLA_FLAGS", "")
+    xla = " ".join(
+        f for f in xla.split()
+        if not f.startswith("--xla_force_host_platform_device_count=")
+    )
+    return {
+        "JAX_PLATFORMS": "cpu",
+        "XLA_FLAGS": (xla + " --xla_force_host_platform_device_count=1").strip(),
+    }
+
+
+def _apply_pin_guard(pin_env: Optional[Dict[str, str]]) -> Optional[str]:
+    """Worker-side post-init check: if pinning was requested and the
+    evaluator pulled jax in, the worker must see exactly one device.
+    Returns an error message (init failure) or None."""
+    if not pin_env:
+        return None
+    import sys
+
+    jax = sys.modules.get("jax")
+    if jax is None:
+        return None  # evaluator never imported jax — nothing to mispin
+    try:
+        n = len(jax.devices())
+    except Exception as e:  # noqa: BLE001 — backend init itself broke
+        return f"device pin guard: jax.devices() failed: {type(e).__name__}: {e}"
+    if n != 1:
+        return (
+            f"device pin guard: worker sees {n} devices, expected exactly 1 — "
+            "the pin env landed after jax initialised (use mp_context='spawn', "
+            "and never import jax at executors module scope)"
+        )
+    return None
+
+
+def _clear_caches(evaluator: Any) -> None:
+    """Between-trial cache clearing: the evaluator's own ``clear_caches()``
+    when it has one, nothing otherwise (the port runs no jax, so there is no
+    global compile cache to drop)."""
+    clear = getattr(evaluator, "clear_caches", None)
+    if callable(clear):
+        clear()
+
+
+# -------------------------------------------------------------- worker child
+
+
+def _worker_main(conn, spec: EvaluatorSpec,
+                 pin_env: Optional[Dict[str, str]] = None) -> None:
+    """Worker process loop: build the evaluator once (warm), then serve
+    trials until told to exit or killed."""
+    if pin_env:
+        # before spec.resolve(): jax must first initialise under these vars
+        os.environ.update(pin_env)
+    try:
+        evaluator = spec.resolve()
+        err = _apply_pin_guard(pin_env)
+        if err is not None:
+            raise RuntimeError(err)
+    except BaseException as e:  # noqa: BLE001 — parent decides what to do
+        try:
+            conn.send(("init_error", f"{type(e).__name__}: {e}"))
+        finally:
+            return
+    conn.send(("ready", os.getpid()))
+    while True:
+        try:
+            msg = conn.recv()
+        except (EOFError, OSError):
+            return  # parent went away
+        if not msg or msg[0] == "exit":
+            return
+        _, seq, config, clear_caches = msg[:4]
+        fidelity = float(msg[4]) if len(msg) > 4 else 1.0
+        if clear_caches:
+            _clear_caches(evaluator)
+        t0 = time.time()
+        try:
+            t, info = call_evaluator(evaluator, config, fidelity)
+            conn.send(("ok", seq, float(t), _scalar_info(dict(info)),
+                       time.time() - t0))
+        except Exception as e:  # noqa: BLE001 — a failed run is a trial
+            conn.send(("err", seq, f"{type(e).__name__}: {e}", time.time() - t0))
+
+
+# ------------------------------------------------------------- parent bookkeeping
+
+
+@dataclass
+class _Task:
+    key: str
+    config: Dict[str, Any]
+    attempt: int
+    seq: int
+    t0_wall: float  # time.time() at dispatch — Trial.wall_s base
+    deadline: Optional[float]  # time.monotonic() hard-kill point (rung-scaled)
+    fidelity: float = 1.0
+    tag: Optional[str] = None
+
+
+class _Worker:
+    """Parent-side handle: process + pipe + readiness/task state."""
+
+    def __init__(self, ctx, spec: EvaluatorSpec, init_timeout_s: float,
+                 pin_slot: Optional[int] = None,
+                 pin_env: Optional[Dict[str, str]] = None):
+        parent_conn, child_conn = ctx.Pipe()
+        self.proc = ctx.Process(
+            target=_worker_main, args=(child_conn, spec, pin_env), daemon=True
+        )
+        self.proc.start()
+        child_conn.close()
+        self.conn = parent_conn
+        self.pid = self.proc.pid
+        self.ready = False
+        self.dead = False
+        self.task: Optional[_Task] = None
+        self.init_deadline = time.monotonic() + init_timeout_s
+        self.pin_slot = pin_slot
+        self.pin_env = pin_env
+
+    def kill(self) -> None:
+        """SIGKILL + reap. SIGKILL cannot be caught, so a wedged trial —
+        sleeping in C, spinning under the GIL, stuck in a collective — dies."""
+        self.dead = True
+        try:
+            self.proc.kill()
+        except Exception:  # noqa: BLE001
+            pass
+        self.proc.join(5.0)
+        try:
+            self.conn.close()
+        except Exception:  # noqa: BLE001
+            pass
+
+    def stop(self) -> None:
+        """Graceful shutdown; falls back to kill."""
+        if self.dead:
+            return
+        try:
+            self.conn.send(("exit",))
+        except Exception:  # noqa: BLE001
+            pass
+        self.proc.join(1.0)
+        if self.proc.is_alive():
+            self.kill()
+        else:
+            self.dead = True
+            try:
+                self.conn.close()
+            except Exception:  # noqa: BLE001
+                pass
+
+
+# ------------------------------------------------------------------ backends
+
+
+class ExecutionBackend:
+    """Where fresh trials run. ``bind`` receives the owning scheduler (the
+    source of evaluator, timeout/retry policy, and the persistence hook).
+
+    Two execution paths:
+
+    - ``run_batch(plan, fidelity)`` — round-batched; returns ``(key, Trial)``
+      pairs in plan order after the whole batch drains.
+    - ``submit(key, config, fidelity, tag)`` + ``poll(timeout)`` — streaming;
+      each ``poll`` returns whichever trials finished, the moment they do.
+      The scheduler's async seam (``TrialScheduler.submit/poll/run_async``)
+      drives this path; ASHA's no-barrier promotions depend on it.
+    """
+
+    name = "abstract"
+
+    def bind(self, scheduler) -> None:
+        self.sched = scheduler
+
+    def run_batch(
+        self, plan: List[Tuple[str, Dict[str, Any]]], fidelity: float = 1.0
+    ) -> List[Tuple[str, Trial]]:
+        raise NotImplementedError
+
+    def submit(self, key: str, config: Dict[str, Any],
+               fidelity: float = 1.0, tag: Optional[str] = None) -> None:
+        raise NotImplementedError(f"{self.name} backend has no async path")
+
+    def poll(self, timeout: Optional[float] = None) -> List[Tuple[str, Trial]]:
+        raise NotImplementedError(f"{self.name} backend has no async path")
+
+    def close(self) -> None:  # noqa: B027 — optional hook
+        pass
+
+
+@dataclass
+class _InlineRun:
+    """One in-flight async trial on the inline backend's thread path."""
+
+    key: str
+    config: Dict[str, Any]
+    fidelity: float
+    tag: Optional[str]
+    started: Optional[float] = None  # time.monotonic() at evaluation start
+    abandoned: bool = False  # soft-timeout fired; late result is discarded
+
+
+class InlineBackend(ExecutionBackend):
+    """The original in-process path: serial (or thread-pooled) evaluation via
+    the scheduler's ``_run_one`` / ``_run_parallel``, soft timeouts only.
+    ``clear_caches_between_trials`` forces the serial path with a global jit
+    cache clear before every fresh trial (clearing is global state).
+
+    The async ``submit``/``poll`` path runs each trial on its own daemon
+    thread with its *own* concurrency accounting rather than a thread pool:
+    a hung trial is abandoned at its (rung-scaled) soft deadline and drops
+    out of the running count, so it cannot poison a pool slot for the rest
+    of the session. ``parallel_safe=False`` evaluators and
+    ``clear_caches_between_trials`` serialize the thread path to one trial
+    at a time, matching the batch path's semantics.
+    """
+
+    name = "inline"
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._queue: deque = deque()  # (key, config, fidelity, tag)
+        self._running: Dict[str, _InlineRun] = {}
+        self._finished: List[Tuple[str, Trial]] = []
+
+    def run_batch(self, plan, fidelity=1.0):
+        s = self.sched
+        if s.clear_caches:
+            out = []
+            for k, c in plan:
+                _clear_caches(s.evaluator)
+                out.append((k, s._run_one(c, fidelity)))
+            return out
+        parallel_ok = getattr(s.evaluator, "parallel_safe", True)
+        if s.max_workers > 1 and parallel_ok and len(plan) > 1:
+            return s._run_parallel(plan, fidelity)
+        return [(k, s._run_one(c, fidelity)) for k, c in plan]
+
+    # -- async path
+
+    def submit(self, key, config, fidelity=1.0, tag=None):
+        with self._cond:
+            self._queue.append((key, dict(config), fidelity, tag))
+            self._start_ready_locked()
+
+    def poll(self, timeout=None):
+        s = self.sched
+        end = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while True:
+                self._reap_timeouts_locked()
+                if self._finished or not (self._running or self._queue):
+                    break
+                now = time.monotonic()
+                if end is not None and now >= end:
+                    break
+                waits = [] if end is None else [end - now]
+                if s.timeout_s is not None:
+                    for run in self._running.values():
+                        if run.started is None:
+                            waits.append(0.05)  # thread not scheduled yet
+                        else:
+                            waits.append(
+                                run.started + s._deadline_for(run.fidelity) - now
+                            )
+                self._cond.wait(max(0.01, min(waits)) if waits else None)
+            out, self._finished = self._finished, []
+            return out
+
+    def _start_ready_locked(self) -> None:
+        s = self.sched
+        serial = s.clear_caches or not getattr(s.evaluator, "parallel_safe", True)
+        cap = 1 if serial else max(1, s.max_workers)
+        while self._queue and len(self._running) < cap:
+            key, config, fidelity, tag = self._queue.popleft()
+            run = _InlineRun(key, config, fidelity, tag)
+            self._running[key] = run
+            threading.Thread(target=self._work, args=(run,), daemon=True).start()
+
+    def _work(self, run: _InlineRun) -> None:
+        s = self.sched
+        if s.clear_caches:
+            _clear_caches(s.evaluator)
+        run.started = time.monotonic()
+        trial = s._run_one(run.config, run.fidelity, tag=run.tag)
+        with self._cond:
+            if not run.abandoned:
+                self._running.pop(run.key, None)
+                self._finished.append((run.key, trial))
+                self._start_ready_locked()
+            self._cond.notify_all()
+
+    def _reap_timeouts_locked(self) -> None:
+        """Abandon runs past their rung-scaled soft deadline. The thread
+        itself cannot be killed (inline semantics); it keeps running but no
+        longer counts against the concurrency cap, and its eventual result
+        is dropped here (``_run_one`` already persisted the real measurement
+        as a ``status="timeout"`` record)."""
+        s = self.sched
+        if s.timeout_s is None:
+            return
+        now = time.monotonic()
+        for key, run in list(self._running.items()):
+            eff = s._deadline_for(run.fidelity)
+            if run.started is not None and now >= run.started + eff:
+                run.abandoned = True
+                self._running.pop(key)
+                self._finished.append((key, Trial(
+                    dict(run.config), s.infeasible_time, {}, wall_s=eff,
+                    error=f"TrialTimeout: no result within {eff}s of start "
+                          "(soft; worker thread abandoned)",
+                    status="timeout", fidelity=run.fidelity,
+                )))
+        self._start_ready_locked()
+
+
+class SubprocessBackend(ExecutionBackend):
+    """Hard per-trial isolation: worker processes with SIGKILL deadlines.
+
+    - ``spec``: how workers construct the evaluator; defaults to
+      ``EvaluatorSpec.from_evaluator(scheduler.evaluator)`` at bind time.
+    - ``mp_context``: multiprocessing start method. ``"spawn"`` (default) is
+      safe after jax/XLA has initialised in the parent; ``"fork"`` starts
+      faster but inherits the parent's threads and is unsafe once jax is up.
+    - ``worker_init_timeout_s``: budget for worker startup (imports + device
+      init + evaluator construction). Init failures raise — they are
+      configuration errors, not trial failures.
+    - ``pin_devices``: restrict each worker to ONE device, round-robin over
+      ``N`` device slots (worker env set before its first ``import jax`` —
+      see :func:`_device_pin_env`). A respawned worker inherits the lowest
+      free slot, so a crashed worker's device is reused, not leaked.
+
+    Timeout semantics: the deadline clock starts when a config is dispatched
+    to an already-warm worker, so worker startup never eats trial budget. A
+    result that arrives before the kill but over the deadline keeps its real
+    measurement (``status="timeout"``, persisted), exactly like the inline
+    soft-timeout path.
+    """
+
+    name = "subprocess"
+
+    def __init__(
+        self,
+        *,
+        spec: Optional[EvaluatorSpec] = None,
+        mp_context: str = "spawn",
+        worker_init_timeout_s: float = 120.0,
+        pin_devices: Optional[int] = None,
+    ):
+        self.spec = spec
+        self.mp_context = mp_context
+        self.worker_init_timeout_s = float(worker_init_timeout_s)
+        if pin_devices is not None and int(pin_devices) < 1:
+            raise ValueError(
+                f"pin_devices must be a positive device count, got {pin_devices}"
+            )
+        self.pin_devices = None if pin_devices is None else int(pin_devices)
+        self._pin_rr = 0  # round-robin cursor once every slot is occupied
+        self._ctx = mp.get_context(mp_context)
+        self._workers: List[_Worker] = []
+        self._seq = 0
+        # init-failure policy: before any worker has EVER come up, an init
+        # death is a configuration error and raises immediately; afterwards
+        # it is treated as transient (e.g. respawn under the memory pressure
+        # a contained OOM trial created) and retried a few times
+        self._ever_ready = False
+        self._init_failures = 0
+        # shared task state both execution paths pump through:
+        # (key, config, fidelity, tag, attempt) awaiting a worker, and
+        # finished (key, Trial) pairs not yet handed back to a caller
+        self._pending: deque = deque()
+        self._done: List[Tuple[str, Trial]] = []
+
+    def bind(self, scheduler) -> None:
+        super().bind(scheduler)
+        if self.spec is None:
+            self.spec = EvaluatorSpec.from_evaluator(scheduler.evaluator)
+
+    # -- pool plumbing
+
+    def _next_pin_slot(self) -> int:
+        """Lowest device slot no live worker holds; round-robin overflow when
+        the pool is larger than the device count."""
+        used = {w.pin_slot for w in self._workers if not w.dead}
+        for slot in range(self.pin_devices):
+            if slot not in used:
+                return slot
+        self._pin_rr += 1
+        return self._pin_rr % self.pin_devices
+
+    def _spawn(self) -> _Worker:
+        slot = env = None
+        if self.pin_devices is not None:
+            slot = self._next_pin_slot()
+            env = _device_pin_env(slot, self.pin_devices)
+        w = _Worker(self._ctx, self.spec, self.worker_init_timeout_s,
+                    pin_slot=slot, pin_env=env)
+        self._workers.append(w)
+        return w
+
+    _MAX_INIT_FAILURES = 3  # consecutive; any successful init resets
+
+    def _init_failed(self, detail: str) -> None:
+        """A worker never reached "ready". Raise for a cold pool or a streak
+        (deterministic breakage); otherwise let the pool respawn."""
+        self._init_failures += 1
+        if not self._ever_ready or self._init_failures >= self._MAX_INIT_FAILURES:
+            raise RuntimeError(detail)
+
+    # -- task plumbing (shared by run_batch and submit/poll)
+
+    def _dispatch(self, w: _Worker, key: str, config: Dict[str, Any],
+                  fidelity: float, tag: Optional[str], attempt: int) -> None:
+        s = self.sched
+        self._seq += 1
+        eff = s._deadline_for(fidelity)
+        task = _Task(
+            key, config, attempt, self._seq, time.time(),
+            None if eff is None else time.monotonic() + eff,
+            fidelity=fidelity, tag=tag,
+        )
+        try:
+            w.conn.send(("run", task.seq, config, s.clear_caches, fidelity))
+        except (BrokenPipeError, OSError):
+            # worker died while idle — not the trial's fault; requeue at
+            # the same attempt and let the pool respawn
+            w.kill()
+            self._pending.appendleft((key, config, fidelity, tag, attempt))
+            return
+        w.task = task
+
+    def _settle_failure(self, t: _Task, error: str) -> None:
+        """Crash or evaluator exception: retry if budget allows."""
+        if t.attempt < self.sched.retries:
+            self._pending.append((t.key, t.config, t.fidelity, t.tag,
+                                  t.attempt + 1))
+        else:
+            self._done.append((t.key, Trial(
+                dict(t.config), self.sched.infeasible_time, {},
+                wall_s=time.time() - t.t0_wall, error=error, status="error",
+                fidelity=t.fidelity,
+            )))
+
+    def _on_readable(self, w: _Worker) -> None:
+        s = self.sched
+        try:
+            msg = w.conn.recv()
+        except (EOFError, OSError):
+            # hard crash: segfault, os._exit, OOM-kill — contain it
+            w.proc.join(1.0)  # reap so exitcode is real, not None
+            t, code = w.task, w.proc.exitcode
+            w.task = None
+            was_ready = w.ready
+            w.kill()
+            if t is not None:
+                self._settle_failure(
+                    t, f"WorkerCrash: trial process pid {w.pid} died "
+                       f"(exit code {code})",
+                )
+            elif not was_ready:
+                self._init_failed(
+                    f"subprocess worker pid {w.pid} died during evaluator "
+                    f"construction (exit code {code})"
+                )
+            return
+        kind = msg[0]
+        if kind == "ready":
+            w.ready = True
+            self._ever_ready = True
+            self._init_failures = 0
+            return
+        if kind == "init_error":
+            w.kill()
+            # an exception out of the evaluator factory is deterministic
+            # config breakage — always fatal, no retry
+            raise RuntimeError(
+                f"evaluator construction failed in subprocess worker: {msg[1]}"
+            )
+        t = w.task
+        if t is None or msg[1] != t.seq:
+            return  # stale message from a superseded dispatch
+        w.task = None
+        if kind == "ok":
+            _, _, time_s, info, _eval_wall = msg
+            wall = time.time() - t.t0_wall
+            eff = s._deadline_for(t.fidelity)
+            if eff is not None and wall > eff:
+                trial = Trial(
+                    dict(t.config), float(time_s), dict(info), wall_s=wall,
+                    error=f"TrialTimeout: wall {wall:.1f}s > {eff}s "
+                          "(completed over deadline; measurement kept)",
+                    status="timeout", fidelity=t.fidelity,
+                )
+            else:
+                trial = Trial(dict(t.config), float(time_s), dict(info),
+                              wall_s=wall, fidelity=t.fidelity)
+            s._persist(trial, tag=t.tag)
+            self._done.append((t.key, trial))
+        else:  # "err" — exception inside the evaluator; worker stays warm
+            _, _, err, _eval_wall = msg
+            self._settle_failure(t, err)
+
+    def _outstanding(self) -> bool:
+        return bool(self._pending) or any(w.task for w in self._workers)
+
+    def _pump(self, wait_cap: Optional[float]) -> None:
+        """One scheduling iteration: reap dead workers, top up the pool,
+        dispatch pending tasks to idle warm workers, wait (bounded by the
+        nearest deadline and ``wait_cap``, an absolute ``time.monotonic()``
+        point or None for "until a message") for worker messages, and
+        SIGKILL anything past its deadline."""
+        s = self.sched
+        self._workers = [w for w in self._workers if not w.dead]
+        busy = sum(1 for w in self._workers if w.task)
+        target = max(1, min(s.max_workers, busy + len(self._pending)))
+        while len(self._workers) < target:
+            self._spawn()
+        for w in self._workers:
+            if not self._pending:
+                break
+            if w.ready and w.task is None and not w.dead:
+                self._dispatch(w, *self._pending.popleft())
+
+        conns = {
+            w.conn: w for w in self._workers
+            if not w.dead and (w.task is not None or not w.ready)
+        }
+        if not conns:
+            return  # everything respawning; caller loops to top up the pool
+        now = time.monotonic()
+        deadlines = [
+            w.task.deadline for w in conns.values()
+            if w.task is not None and w.task.deadline is not None
+        ] + [w.init_deadline for w in conns.values() if not w.ready]
+        if wait_cap is not None:
+            deadlines.append(wait_cap)
+        wait_s = None if not deadlines else max(0.0, min(deadlines) - now)
+        for conn in _mp_wait(list(conns), timeout=wait_s):
+            self._on_readable(conns[conn])
+
+        now = time.monotonic()
+        for w in self._workers:
+            if w.dead:
+                continue
+            t = w.task
+            if t is not None and t.deadline is not None and now >= t.deadline:
+                w.task = None
+                w.kill()  # the hard part: SIGKILL + reap, no appeal
+                self._done.append((t.key, Trial(
+                    dict(t.config), s.infeasible_time, {},
+                    wall_s=time.time() - t.t0_wall,
+                    error=f"TrialTimeout: exceeded hard deadline "
+                          f"{s._deadline_for(t.fidelity)}s — worker pid "
+                          f"{w.pid} SIGKILLed",
+                    status="timeout", fidelity=t.fidelity,
+                )))
+            elif not w.ready and now >= w.init_deadline:
+                w.kill()
+                self._init_failed(
+                    f"subprocess worker pid {w.pid} failed to initialise "
+                    f"within {self.worker_init_timeout_s}s"
+                )
+
+    # -- execution paths
+
+    def submit(self, key, config, fidelity=1.0, tag=None):
+        self._pending.append((key, dict(config), fidelity, tag, 0))
+
+    def poll(self, timeout=None):
+        end = None if timeout is None else time.monotonic() + timeout
+        while not self._done and self._outstanding():
+            self._pump(end)
+            if end is not None and time.monotonic() >= end:
+                break
+        out, self._done = self._done, []
+        return out
+
+    def run_batch(self, plan, fidelity=1.0):
+        for k, c in plan:
+            self.submit(k, c, fidelity)
+        want = {k for k, _ in plan}
+        done: Dict[str, Trial] = {}
+        stash: List[Tuple[str, Trial]] = []  # earlier async submissions
+        while want - done.keys():
+            for k, trial in self.poll(None):
+                if k in want:
+                    done[k] = trial
+                else:
+                    stash.append((k, trial))
+        self._done = stash + self._done
+        return [(k, done[k]) for k, _ in plan]
+
+    def close(self) -> None:
+        for w in self._workers:
+            w.stop()
+        self._workers = []
+        self._pending.clear()
+        self._done = []
+
+
+def make_backend(name: str, **options: Any) -> ExecutionBackend:
+    """Backend registry: ``inline`` | ``subprocess``."""
+    if name == "inline":
+        return InlineBackend()
+    if name in ("subprocess", "process"):
+        raise NotImplementedError(
+            "isolation='subprocess': the port's subprocess backend, with a "
+            "torch.cuda.device_count() pin check, comes in a later slice "
+            "(ROADMAP Queue 1)"
+        )
+    raise ValueError(
+        f"unknown isolation backend {name!r} (use 'inline' or 'subprocess')"
+    )

@@ -1,0 +1,949 @@
+"""TrialScheduler — the execution engine under every search strategy.
+
+The paper's CMPE (Configuration Manager and Performance Evaluator, §VII) ran
+one trial at a time: apply the config, run the job, log, return the time.
+This module grows that into a batched scheduler the ask/tell strategies
+(:mod:`repro_torch.core.strategies`) drive:
+
+  - **concurrent batches** — ``evaluate_batch`` fans a strategy's batch over
+    a thread pool (wall-clock-bound evaluators like ``WalltimeEvaluator`` and
+    ``FunctionEvaluator`` parallelize; evaluators that mutate global compiler
+    state declare ``parallel_safe = False`` and run serially),
+  - **persistent cross-session cache** — a JSONL file keyed by the canonical
+    config hash; re-runs and resumed sessions replay trial times without a
+    single fresh evaluation,
+  - **per-trial timeout / retry / infeasible penalty** — a hung or crashing
+    trial becomes a logged infeasible trial instead of killing the session,
+  - **pluggable isolation** — fresh trials run through an
+    :class:`repro_torch.core.executors.ExecutionBackend`: ``isolation="inline"``
+    (threads, soft timeouts — the default) or ``isolation="subprocess"``
+    (worker processes, hard SIGKILL deadlines, crash containment),
+  - **early stopping** — ``run(strategy, patience=k)`` kills a sweep when the
+    running best hasn't improved in k consecutive batches.
+
+Everything the old CMPE promised still holds: identical configs are memoized
+within a session, every trial (fresh, memoized, cached, failed) is appended
+to the JSONL log, and failures are trials, not exceptions.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import math
+import threading
+import time
+from concurrent.futures import CancelledError, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FutureTimeoutError
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple
+
+INFEASIBLE = float("inf")
+
+
+class Evaluator(Protocol):
+    """config dict -> (execution time in seconds, info dict).
+
+    Fidelity-aware evaluators additionally accept ``fidelity=`` (a fraction
+    ``0 < f <= 1`` of the full per-trial budget — see
+    :mod:`repro_torch.core.fidelity`) and set ``supports_fidelity = True``; the
+    scheduler only forwards the kwarg to evaluators that declare it, so a
+    plain full-fidelity evaluator never sees it."""
+
+    def __call__(self, config: Dict[str, Any]) -> Tuple[float, Dict[str, Any]]: ...
+
+
+@dataclass
+class Trial:
+    config: Dict[str, Any]
+    time_s: float
+    info: Dict[str, Any] = field(default_factory=dict)
+    wall_s: float = 0.0
+    error: Optional[str] = None
+    # fresh | cache (persistent) | prefilter (statically rejected) — memo
+    # hits reuse the Trial
+    source: str = "fresh"
+    # ok | error | timeout | infeasible_static — timeouts are NOT generic
+    # failures, and a statically-rejected config never ran at all
+    status: str = "ok"
+    fidelity: float = 1.0  # fraction of the full evaluation this trial paid
+
+    @property
+    def ok(self) -> bool:
+        return self.error is None
+
+    @property
+    def timed_out(self) -> bool:
+        return self.status == "timeout"
+
+    @property
+    def score(self) -> float:
+        """What a strategy ranks on. A timeout Trial may carry its real
+        measured ``time_s`` (kept for resume accounting and analysis), but a
+        config that blows the deadline must never win the sweep — non-ok
+        trials score as infeasible."""
+        return self.time_s if self.ok else INFEASIBLE
+
+
+def config_key(config: Dict[str, Any]) -> str:
+    """Canonical JSON of the config — the memo/log identity of a trial."""
+    return json.dumps(config, sort_keys=True, default=str)
+
+
+def config_hash(config: Dict[str, Any]) -> str:
+    """Short stable hash of :func:`config_key` — the persistent-cache key."""
+    return hashlib.sha256(config_key(config).encode()).hexdigest()[:24]
+
+
+def trial_key(config: Dict[str, Any], fidelity: float = 1.0) -> str:
+    """Memo/log identity of a (config, fidelity) evaluation. Full fidelity
+    is byte-identical to :func:`config_key` — pre-fidelity caches, memos,
+    and logs keep their exact keys — while a low-rung evaluation gets a
+    distinct identity so it can never replay as the full measurement."""
+    key = config_key(config)
+    if fidelity >= 1.0:
+        return key
+    return f"{key}|fidelity={fidelity:g}"
+
+
+def trial_hash(config: Dict[str, Any], fidelity: float = 1.0) -> str:
+    """Persistent-cache key for a (config, fidelity) evaluation; equals
+    :func:`config_hash` at full fidelity."""
+    return hashlib.sha256(trial_key(config, fidelity).encode()).hexdigest()[:24]
+
+
+# legacy name used by the old cmpe module
+_key = config_key
+
+
+class TrialScheduler:
+    """Batched trial executor with memoization, persistence, and pruning.
+
+    ``max_workers=1`` (the default) reproduces the old CMPE behaviour
+    byte-for-byte: serial evaluation in ask order, identical log records.
+    """
+
+    def __init__(
+        self,
+        evaluator: Evaluator,
+        *,
+        platform: str = "train",
+        log_path: Optional[Path] = None,
+        clear_caches_between_trials: bool = False,
+        max_workers: int = 1,
+        cache_path: Optional[Path] = None,
+        timeout_s: Optional[float] = None,
+        retries: int = 0,
+        infeasible_time: float = INFEASIBLE,
+        isolation: str = "inline",
+        pin_devices: Optional[int] = None,
+        backend: Optional[Any] = None,
+        prefilter: Optional[Any] = None,
+    ):
+        self.evaluator = evaluator
+        self.platform = platform
+        # static feasibility gate: a mode string ("off"/"static") or any
+        # callable (config, platform, fidelity) -> Optional[Rejection];
+        # None/off = every config runs
+        if isinstance(prefilter, str):
+            if prefilter != "off":
+                raise NotImplementedError(
+                    f"prefilter={prefilter!r}: the port has no static "
+                    "prefilter yet (ROADMAP Queue 1, the static prefilter "
+                    "for kernel-cuda/ cells)"
+                )
+            prefilter = None
+        self.prefilter = prefilter
+        self.log_path = Path(log_path) if log_path else None
+        self.clear_caches = clear_caches_between_trials
+        self.max_workers = max(1, int(max_workers))
+        self.timeout_s = timeout_s
+        self.retries = max(0, int(retries))
+        self.infeasible_time = infeasible_time
+        self.trials: List[Trial] = []
+        self._memo: Dict[str, Trial] = {}
+        self._log_lock = threading.Lock()
+        self._batch_tag = ""  # provenance stamped into persisted records
+        # async submit/poll state: tickets are handed out in submission
+        # order; a completion resolves every ticket of its trial key at once
+        self._next_ticket = 0
+        self._ready: List[Tuple[int, Trial]] = []
+        self._inflight: Dict[str, List[int]] = {}
+        self._inflight_info: Dict[str, Tuple[Dict[str, Any], float, str]] = {}
+        # cache-accounting counters (the engine tests assert on these)
+        self.fresh_evaluations = 0
+        self.memo_hits = 0
+        self.cache_hits = 0
+        # outcome counters — timeouts (incl. abandoned hung threads) are
+        # reported distinctly, not folded into the generic failure count
+        self.timeout_trials = 0
+        self.error_trials = 0
+        # configs the static prefilter rejected at propose time — they never
+        # charged a worker and are excluded from every evaluation count
+        self.infeasible_static = 0
+        if self.log_path:
+            self.log_path.parent.mkdir(parents=True, exist_ok=True)
+        self.cache_path = Path(cache_path) if cache_path else None
+        self._persistent: Dict[str, Dict[str, Any]] = {}
+        if self.cache_path:
+            self._persistent = _load_cache(self.cache_path, self.platform)
+            self.cache_path.parent.mkdir(parents=True, exist_ok=True)
+        if backend is None:
+            # local import: executors imports Trial from this module
+            from repro_torch.core.executors import make_backend
+
+            options: Dict[str, Any] = {}
+            if pin_devices is not None:
+                if isolation not in ("subprocess", "process"):
+                    raise ValueError(
+                        "pin_devices requires isolation='subprocess' — the "
+                        "inline thread path shares one jax runtime and "
+                        "cannot re-pin devices per trial"
+                    )
+                options["pin_devices"] = pin_devices
+            backend = make_backend(isolation, **options)
+        self.isolation = getattr(backend, "name", isolation)
+        self._backend = backend
+        self._backend.bind(self)
+
+    # ------------------------------------------------------------------- api
+
+    def evaluate(
+        self, config: Dict[str, Any], tag: str = "", fidelity: float = 1.0
+    ) -> float:
+        """Tune the platform to ``config``, run the job, return execution
+        time. Logs every call (the one-trial path the old CMPE exposed).
+
+        The scalar return is a *rankable score*: a trial that completed over
+        the deadline keeps its real measurement on the Trial (and in the
+        cache) but scores as ``infeasible_time`` here, so legacy callers
+        comparing bare floats never crown a deadline-busting config."""
+        trial = self.evaluate_batch([config], tag=tag, fidelity=fidelity)[0]
+        return self.infeasible_time if trial.timed_out else trial.time_s
+
+    def evaluate_batch(
+        self, configs: Sequence[Dict[str, Any]], tag: str = "",
+        fidelity: float = 1.0,
+    ) -> List[Trial]:
+        """Evaluate a batch at one ``fidelity``, returning one Trial per
+        config **in input order**. Duplicates (within the batch or vs.
+        earlier batches) are served from the memo; persistent-cache hits
+        cost nothing fresh. Fidelity is part of a trial's identity: a
+        low-rung record never replays as the full-fidelity measurement (and
+        vice versa)."""
+        self._batch_tag = tag
+        keys = [trial_key(c, fidelity) for c in configs]
+        plan: List[Tuple[str, Dict[str, Any]]] = []  # unique keys needing a run
+        first_served = set()  # keys whose first occurrence is logged below
+        for k, c in zip(keys, configs):
+            if k in self._memo or k in first_served:
+                continue
+            if self._replay(c, fidelity, tag) is None:
+                rejection = self._prefilter_check(c, fidelity)
+                if rejection is not None:
+                    self._reject(c, fidelity, tag, rejection)
+                else:
+                    plan.append((k, c))
+            first_served.add(k)
+
+        if plan:
+            # how/where fresh trials run is the backend's business: inline
+            # (threads, soft timeouts) or subprocess (hard SIGKILL deadlines)
+            fresh = self._backend.run_batch(plan, fidelity=fidelity)
+            for k, trial in fresh:
+                self.fresh_evaluations += 1
+                if trial.timed_out:
+                    self.timeout_trials += 1
+                elif not trial.ok:
+                    self.error_trials += 1
+                self.trials.append(trial)
+                self._memo[k] = trial
+                # successful trials were already persisted the moment they
+                # completed (inside _run_one) — a mid-batch crash loses nothing
+                self._log(trial, tag=tag, cached=False)
+
+        out: List[Trial] = []
+        for k in keys:
+            trial = self._memo[k]
+            out.append(trial)
+            if k in first_served:
+                first_served.discard(k)  # first occurrence logged above
+            else:  # repeat of this batch or of an earlier one — memo hit
+                self.memo_hits += 1
+                self._log(trial, tag=tag, cached=True)
+        return out
+
+    def _replay(
+        self, config: Dict[str, Any], fidelity: float, tag: str
+    ) -> Optional[Trial]:
+        """Serve one (config, fidelity) from the persistent cache if it is
+        there. The replay preserves the measurement but re-judges a persisted
+        over-deadline record against THIS session's (rung-scaled) deadline: a
+        cache written under a tight timeout must not permanently poison
+        configs whose measured wall now fits."""
+        hit = self._persistent.get(trial_hash(config, fidelity))
+        if hit is None:
+            return None
+        status = hit.get("status", "ok")
+        error = hit.get("error")
+        if status == "infeasible_static" and self.prefilter is None:
+            # the gate's verdicts bind only while the gate is on: a session
+            # running --prefilter off measures the config for real instead
+            # of replaying another session's static rejection
+            return None
+        if status == "timeout":
+            deadline = self._deadline_for(fidelity)
+            rec_wall = float(hit.get("wall_s", INFEASIBLE))
+            if deadline is None or rec_wall <= deadline:
+                status, error = "ok", None
+        trial = Trial(
+            dict(config), float(hit["time_s"]), dict(hit.get("info", {})),
+            wall_s=0.0, source="cache", error=error, status=status,
+            fidelity=float(hit.get("fidelity", 1.0)),
+        )
+        self.cache_hits += 1
+        if trial.status == "infeasible_static":
+            # a replayed rejection still isn't an evaluation — keep the
+            # counter in step so the accounting subtraction stays exact
+            self.infeasible_static += 1
+        self.trials.append(trial)
+        self._memo[trial_key(config, fidelity)] = trial
+        self._log(trial, tag=tag, cached=True)
+        return trial
+
+    def _prefilter_check(self, config: Dict[str, Any], fidelity: float):
+        """Run the static feasibility gate on one proposal (None = passes)."""
+        if self.prefilter is None:
+            return None
+        return self.prefilter(config, self.platform, fidelity)
+
+    def _reject(
+        self, config: Dict[str, Any], fidelity: float, tag: str, rejection
+    ) -> Trial:
+        """Record one statically-rejected proposal: an
+        ``status="infeasible_static"`` trial carrying the machine-readable
+        rule + evidence, memoized, persisted (it replays on resume) and
+        logged — but never dispatched to a worker and never counted as an
+        evaluation. Strategies rank it by ``Trial.score`` = infeasible, so
+        TPE/CRS steer away and ASHA never promotes it."""
+        trial = Trial(
+            dict(config), INFEASIBLE,
+            {"prefilter_rule": rejection.rule, **rejection.detail},
+            wall_s=0.0, source="prefilter",
+            error=f"InfeasibleStatic[{rejection.rule}]: {rejection.reason}",
+            status="infeasible_static", fidelity=fidelity,
+        )
+        self.infeasible_static += 1
+        self.trials.append(trial)
+        self._memo[trial_key(config, fidelity)] = trial
+        self._persist(trial, tag=tag)
+        self._log(trial, tag=tag, cached=False)
+        return trial
+
+    def _deadline_for(self, fidelity: float) -> Optional[float]:
+        """Effective per-trial deadline: ``timeout_s`` is the budget of a
+        FULL-fidelity trial; a low-rung trial gets a proportionally shorter
+        one (a rung-0 trial inheriting the full deadline would defeat
+        successive halving)."""
+        if self.timeout_s is None:
+            return None
+        return self.timeout_s * min(max(float(fidelity), 0.0), 1.0)
+
+    # ----------------------------------------------------- async submit/poll
+
+    def submit(
+        self, config: Dict[str, Any], tag: str = "", fidelity: float = 1.0
+    ) -> int:
+        """Enqueue one (config, fidelity) evaluation without waiting for it;
+        returns a ticket :meth:`poll` resolves. This is the streaming seam
+        under asynchronous strategies (ASHA): results come back as each
+        trial finishes, never behind a batch barrier.
+
+        Memo and persistent-cache hits resolve immediately (the next poll
+        returns them without touching the backend). A key already in flight
+        is not resubmitted — every duplicate ticket resolves with the first
+        run's Trial, and duplicates are accounted as memo hits when they
+        resolve."""
+        ticket = self._next_ticket
+        self._next_ticket += 1
+        key = trial_key(config, fidelity)
+        trial = self._memo.get(key)
+        if trial is not None:
+            self.memo_hits += 1
+            self._log(trial, tag=tag, cached=True)
+            self._ready.append((ticket, trial))
+            return ticket
+        if key in self._inflight:
+            self._inflight[key].append(ticket)
+            return ticket
+        trial = self._replay(config, fidelity, tag)
+        if trial is not None:
+            self._ready.append((ticket, trial))
+            return ticket
+        rejection = self._prefilter_check(config, fidelity)
+        if rejection is not None:
+            trial = self._reject(config, fidelity, tag, rejection)
+            self._ready.append((ticket, trial))
+            return ticket
+        self._inflight[key] = [ticket]
+        self._inflight_info[key] = (dict(config), fidelity, tag)
+        self._backend.submit(key, dict(config), fidelity, tag)
+        return ticket
+
+    def poll(self, timeout: Optional[float] = None) -> List[Tuple[int, Trial]]:
+        """Collect completed submissions as ``(ticket, Trial)`` pairs in
+        completion order. Anything already resolved returns immediately;
+        otherwise blocks up to ``timeout`` seconds (None = until at least one
+        in-flight trial completes). Empty list = nothing in flight, or the
+        wait timed out."""
+        out, self._ready = self._ready, []
+        if self._inflight:
+            completed = self._backend.poll(0.0 if out else timeout)
+            for key, trial in completed:
+                self.fresh_evaluations += 1
+                if trial.timed_out:
+                    self.timeout_trials += 1
+                elif not trial.ok:
+                    self.error_trials += 1
+                self.trials.append(trial)
+                self._memo[key] = trial
+                _config, _fid, tag = self._inflight_info.pop(key)
+                tickets = self._inflight.pop(key)
+                self._log(trial, tag=tag, cached=False)
+                out.append((tickets[0], trial))
+                for t in tickets[1:]:  # duplicate submissions of this key
+                    self.memo_hits += 1
+                    self._log(trial, tag=tag, cached=True)
+                    out.append((t, trial))
+        return out
+
+    def run_async(self, strategy, *, patience: Optional[int] = None):
+        """Drive an asynchronous strategy (``wants_async = True``, e.g.
+        ASHA) through :meth:`submit`/:meth:`poll`: jobs stream out as
+        workers free up and results stream back one at a time — no round
+        barrier, so a promotion can dispatch while its rung peers are still
+        running.
+
+        ``patience`` counts completed trials at the highest fidelity seen so
+        far (not batches): the run stops once the best top-fidelity time has
+        not improved in N of them. Comparisons are equal-fidelity only — a
+        fast low-rung score never resets (or wins) the incumbent."""
+        evals_before = self.num_evaluations - self.infeasible_static
+        timeouts_before = self.timeout_trials
+        inflight: Dict[int, Any] = {}
+        best = INFEASIBLE
+        top_fidelity = 0.0
+        stale = 0
+        stopped_early = False
+        while inflight or (not stopped_early and not strategy.done):
+            jobs: List[Any] = []
+            if not stopped_early and not strategy.done:
+                free = self.max_workers - len(inflight)
+                jobs = strategy.next_jobs(free) if free > 0 else []
+                for job in jobs:
+                    ticket = self.submit(
+                        job.config, tag=job.tag, fidelity=job.fidelity
+                    )
+                    inflight[ticket] = job
+            if not inflight:
+                break  # nothing running and nothing proposed: stuck guard
+            for ticket, trial in self.poll(timeout=None):
+                job = inflight.pop(ticket)
+                strategy.on_result(job, trial)
+                if not trial.ok:
+                    continue
+                if trial.fidelity > top_fidelity:
+                    # first completion at a new top rung IS an improvement
+                    top_fidelity, best, stale = trial.fidelity, trial.time_s, 0
+                elif trial.fidelity == top_fidelity:
+                    if trial.time_s < best:
+                        best, stale = trial.time_s, 0
+                    else:
+                        stale += 1
+                    if patience is not None and stale >= patience:
+                        stopped_early = True  # drain in-flight, submit no more
+        result = strategy.result()
+        if hasattr(result, "evaluations"):
+            # statically-rejected proposals are not evaluations
+            result.evaluations = (
+                self.num_evaluations - self.infeasible_static - evals_before
+            )
+        if hasattr(result, "stopped_early"):
+            result.stopped_early = stopped_early
+        if hasattr(result, "timeouts"):
+            result.timeouts = self.timeout_trials - timeouts_before
+        return result
+
+    def run(
+        self,
+        strategy,
+        *,
+        batch_size: Optional[int] = None,
+        patience: Optional[int] = None,
+    ):
+        """Drive an ask/tell strategy to completion (or early stop).
+
+        ``patience=k`` prunes the sweep when the running best time has not
+        improved for k consecutive batches — the grid-pass killer.
+
+        Result accounting (``evaluations`` / ``timeouts``) reports **this
+        run's deltas**, not scheduler-lifetime totals — a shared multi-cell
+        scheduler must not inflate every cell's numbers.
+
+        An asynchronous strategy (``wants_async = True``) is routed to
+        :meth:`run_async` — same result stamping, streaming completion
+        instead of round batches (``batch_size`` does not apply there;
+        concurrency is ``max_workers``)."""
+        if getattr(strategy, "wants_async", False):
+            return self.run_async(strategy, patience=patience)
+        evals_before = self.num_evaluations - self.infeasible_static
+        timeouts_before = self.timeout_trials
+        best = INFEASIBLE
+        stale = 0
+        stopped_early = False
+        while not strategy.done:
+            configs = strategy.ask(batch_size)
+            if not configs:
+                break
+            trials = self.evaluate_batch(configs, tag=strategy.tag)
+            strategy.tell(trials)
+            batch_best = min(
+                (t.time_s for t in trials if t.ok), default=INFEASIBLE
+            )
+            if batch_best < best:
+                best = batch_best
+                stale = 0
+            else:
+                stale += 1
+            if patience is not None and stale >= patience:
+                stopped_early = True
+                break
+        result = strategy.result()
+        if hasattr(result, "evaluations"):
+            # statically-rejected proposals are not evaluations
+            result.evaluations = (
+                self.num_evaluations - self.infeasible_static - evals_before
+            )
+        if hasattr(result, "stopped_early"):
+            result.stopped_early = stopped_early
+        if hasattr(result, "timeouts"):
+            result.timeouts = self.timeout_trials - timeouts_before
+        return result
+
+    def best(self) -> Trial:
+        """Best successful trial **at the highest fidelity any successful
+        trial reached** — a fast low-rung measurement is a different (cheaper)
+        experiment and must never be crowned over full measurements."""
+        ok = [t for t in self.trials if t.ok]
+        if not ok:
+            raise RuntimeError("no successful trials")
+        top = max(t.fidelity for t in ok)
+        return min((t for t in ok if t.fidelity == top), key=lambda t: t.time_s)
+
+    def close(self) -> None:
+        """Release backend resources (warm subprocess workers). Idempotent;
+        a no-op for the inline backend."""
+        self._backend.close()
+
+    def __enter__(self) -> "TrialScheduler":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):  # best-effort — don't leak worker processes
+        try:
+            backend = getattr(self, "_backend", None)
+            if backend is not None:
+                backend.close()
+        except Exception:  # noqa: BLE001
+            pass
+
+    @property
+    def num_evaluations(self) -> int:
+        return len(self.trials)
+
+    def cache_stats(self) -> Dict[str, int]:
+        return {
+            "fresh": self.fresh_evaluations,
+            "memo_hits": self.memo_hits,
+            "cache_hits": self.cache_hits,
+        }
+
+    def run_stats(self) -> Dict[str, int]:
+        """Cache accounting plus trial outcomes — the run-summary block."""
+        return {
+            **self.cache_stats(),
+            "trials": self.num_evaluations,
+            "timeouts": self.timeout_trials,
+            "errors": self.error_trials,
+            "infeasible_static": self.infeasible_static,
+        }
+
+    def stats_snapshot(self) -> Dict[str, int]:
+        """Point-in-time counters for per-session delta accounting: a Study
+        (or the tune shim) subtracts two snapshots so a shared multi-session
+        scheduler reports each session's own numbers, never lifetime totals.
+        Same counters as :meth:`run_stats` under the outcome-facing name —
+        except ``evaluations`` excludes statically-rejected proposals (they
+        never ran; they get their own ``infeasible_static`` counter)."""
+        stats = self.run_stats()
+        stats["evaluations"] = stats.pop("trials") - stats["infeasible_static"]
+        return stats
+
+    def cached_observations(
+        self, with_platform: bool = False
+    ) -> List[Tuple[Any, ...]]:
+        """``(config, time_s, tag)`` triples from the persistent cache, this
+        platform only, in file order — the warm-start history a model-based
+        strategy (TPE) seeds its observation set from on resume. The tag
+        carries provenance: a strategy charges only its *own* records against
+        its trial budget and treats the rest as free model observations.
+        Persisted timeout records are excluded — an over-deadline measurement
+        must not feed a density model as if it were a clean observation.
+        Sub-fidelity records (ASHA's low rungs) are excluded too: they live
+        on a different time scale and would skew any model that mixed them
+        with full measurements.
+
+        ``with_platform=True`` appends each record's **stored** cell
+        namespace as a fourth element. The stored namespace is the record's
+        identity, not this scheduler's view of it: a legacy record with no
+        platform field matched this scheduler's filter by default and reads
+        back as ``None`` — callers bucketing records per cell (the cross-cell
+        ``Study.histories_for``) must never attribute it to a real cell."""
+        out: List[Tuple[Any, ...]] = []
+        for rec in self._persistent.values():
+            if "config" not in rec or "time_s" not in rec:
+                continue
+            if rec.get("status", "ok") != "ok":
+                continue
+            if float(rec.get("fidelity", 1.0)) < 1.0:
+                continue
+            row = (dict(rec["config"]), float(rec["time_s"]), rec.get("tag"))
+            out.append(row + (rec.get("platform"),) if with_platform else row)
+        return out
+
+    # ------------------------------------------------------------- execution
+
+    def _run_one(
+        self, config: Dict[str, Any], fidelity: float = 1.0,
+        tag: Optional[str] = None,
+    ) -> Trial:
+        """One fresh evaluation with retry + soft timeout + penalty. The
+        result is persisted immediately (not at batch end), so a session
+        killed mid-batch resumes from everything already evaluated. The
+        soft deadline is rung-scaled: ``timeout_s × fidelity``."""
+        t0 = time.time()
+        deadline = self._deadline_for(fidelity)
+        last_err = None
+        for _attempt in range(self.retries + 1):
+            try:
+                t, info = call_evaluator(self.evaluator, config, fidelity)
+                trial = Trial(dict(config), float(t), info,
+                              wall_s=time.time() - t0, fidelity=fidelity)
+                if deadline is not None and trial.wall_s > deadline:
+                    # completed over the soft deadline: the measurement is
+                    # real — keep and persist it (a resume must not re-pay
+                    # it); status="timeout" lets strategies score it (they
+                    # rank on Trial.score, which is infeasible for non-ok)
+                    trial = Trial(
+                        dict(config), float(t), info, wall_s=trial.wall_s,
+                        error=f"TrialTimeout: wall {trial.wall_s:.1f}s > "
+                              f"{deadline}s (soft; measurement kept)",
+                        status="timeout", fidelity=fidelity,
+                    )
+                self._persist(trial, tag=tag)
+                return trial
+            except Exception as e:  # noqa: BLE001 — a failed run is a trial
+                last_err = f"{type(e).__name__}: {e}"
+        return Trial(
+            dict(config), self.infeasible_time, {}, wall_s=time.time() - t0,
+            error=last_err, status="error", fidelity=fidelity,
+        )
+
+    def _run_parallel(
+        self, plan: List[Tuple[str, Dict[str, Any]]], fidelity: float = 1.0
+    ) -> List[Tuple[str, Trial]]:
+        """Fan the batch over a thread pool; a future that misses the hard
+        deadline becomes an infeasible trial. The batch returns promptly
+        regardless: queued futures are cancelled and a hung worker thread is
+        abandoned, not joined (threads can't be killed — it still holds until
+        interpreter exit; ``isolation="subprocess"`` kills for real).
+
+        Deadline semantics: every trial gets ``timeout_s`` from the moment
+        its thread actually *starts* — not from the previous ``result()``
+        call (the old cumulative bug: N stragglers serialized into N×timeout
+        wall clock), and not from batch start (which would falsely time out
+        trials queued behind a full pool). A trial still queued once every
+        pool slot has had a full timeout window (``timeout_s × ceil(N/W)``
+        from batch start) is stuck behind hung threads and is cancelled. A
+        started-then-abandoned thread that eventually completes has
+        ``wall_s > timeout_s`` by construction, so its late ``_run_one``
+        persist is the same measured-timeout record — never a conflicting
+        ok record."""
+        out: List[Tuple[str, Trial]] = []
+        pool = ThreadPoolExecutor(max_workers=self.max_workers)
+        starts: Dict[int, float] = {}  # future index -> monotonic start
+        timeout_s = self._deadline_for(fidelity)  # rung-scaled deadline
+
+        def timed(i: int, c: Dict[str, Any]) -> Trial:
+            starts[i] = time.monotonic()
+            return self._run_one(c, fidelity)
+
+        batch_cap = (
+            None if timeout_s is None
+            else time.monotonic()
+            + timeout_s * math.ceil(len(plan) / self.max_workers)
+        )
+        try:
+            futures = [
+                (i, k, c, pool.submit(timed, i, c))
+                for i, (k, c) in enumerate(plan)
+            ]
+            for i, k, c, fut in futures:
+                trial: Optional[Trial] = None
+                while trial is None:
+                    if timeout_s is None:
+                        trial = fut.result()
+                        break
+                    now = time.monotonic()
+                    t_start = starts.get(i)
+                    if t_start is None:
+                        if now >= batch_cap and fut.cancel():
+                            trial = Trial(
+                                dict(c), self.infeasible_time, {}, wall_s=0.0,
+                                error="TrialTimeout: cancelled before start "
+                                      "(batch cap exhausted by hung earlier "
+                                      "trials)",
+                                status="timeout", fidelity=fidelity,
+                            )
+                            break
+                        wait = min(0.05, max(0.0, batch_cap - now))
+                    else:
+                        deadline_i = t_start + timeout_s
+                        if now >= deadline_i:
+                            trial = Trial(
+                                dict(c), self.infeasible_time, {},
+                                wall_s=timeout_s,
+                                error="TrialTimeout: no result within "
+                                      f"{timeout_s}s of start "
+                                      "(worker thread abandoned)",
+                                status="timeout", fidelity=fidelity,
+                            )
+                            break
+                        wait = deadline_i - now
+                    try:
+                        trial = fut.result(timeout=wait)
+                    except FutureTimeoutError:
+                        continue  # re-evaluate start/deadline state
+                    except CancelledError:
+                        trial = Trial(
+                            dict(c), self.infeasible_time, {}, wall_s=0.0,
+                            error="TrialTimeout: cancelled before start "
+                                  f"(batch deadline {timeout_s}s)",
+                            status="timeout", fidelity=fidelity,
+                        )
+                out.append((k, trial))
+        finally:
+            # don't block on stragglers; drop whatever never started
+            pool.shutdown(wait=False, cancel_futures=True)
+        return out
+
+    # ------------------------------------------------------------------- io
+
+    def _persist(self, trial: Trial, tag: Optional[str] = None):
+        # ok trials always persist; timeout trials persist only when they
+        # carry a real finite measurement (a SIGKILLed / abandoned trial has
+        # nothing worth replaying). Extra keys appear ONLY on non-ok or
+        # sub-fidelity records, keeping full-fidelity ok-record bytes
+        # identical to every cache written before.
+        measured_timeout = trial.timed_out and math.isfinite(trial.time_s)
+        rejected = trial.status == "infeasible_static"
+        if not self.cache_path or not (trial.ok or measured_timeout or rejected):
+            return
+        rec = {
+            "key": trial_hash(trial.config, trial.fidelity),
+            "platform": self.platform,
+            # which strategy/phase proposed this: async submissions carry
+            # their own tag; the batch path stamps the batch's
+            "tag": self._batch_tag if tag is None else tag,
+            "ts": time.time(),
+            "config": trial.config,
+            "time_s": trial.time_s,
+            "info": _scalar_info(trial.info),
+        }
+        if trial.fidelity < 1.0:
+            rec["fidelity"] = trial.fidelity
+        if not trial.ok:
+            rec["status"] = trial.status
+            rec["error"] = trial.error
+            rec["wall_s"] = trial.wall_s  # replay re-judges vs. the live deadline
+        with self._log_lock:
+            self._persistent[rec["key"]] = rec
+            with self.cache_path.open("a") as f:
+                f.write(jsonl_line(rec) + "\n")
+
+    def _log(self, trial: Trial, tag: str, cached: bool):
+        if not self.log_path:
+            return
+        rec = {
+            "ts": time.time(),
+            "platform": self.platform,
+            "tag": tag,
+            "cached": cached,
+            "config": trial.config,
+            "time_s": trial.time_s,
+            "wall_s": trial.wall_s,
+            "error": trial.error,
+            "status": trial.status,
+            "source": trial.source,
+            "info": _scalar_info(trial.info),
+        }
+        if trial.fidelity < 1.0:  # full-fidelity records keep legacy shape
+            rec["fidelity"] = trial.fidelity
+        with self._log_lock, self.log_path.open("a") as f:
+            f.write(jsonl_line(rec) + "\n")
+
+
+def _scalar_info(info: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: v for k, v in info.items() if isinstance(v, (int, float, str, bool))}
+
+
+def call_evaluator(
+    evaluator: Evaluator, config: Dict[str, Any], fidelity: float = 1.0
+) -> Tuple[float, Dict[str, Any]]:
+    """Invoke an evaluator, forwarding ``fidelity`` only when it declares
+    ``supports_fidelity`` — a plain evaluator never sees the kwarg. A
+    sub-fidelity request on a fidelity-blind evaluator runs the full
+    evaluation (correct, just not cheaper); its Trial still records the
+    requested fidelity so the cache identity stays consistent."""
+    if fidelity < 1.0 and getattr(evaluator, "supports_fidelity", False):
+        return evaluator(config, fidelity=fidelity)
+    return evaluator(config)
+
+
+# Non-finite floats (an infinite-p99 window, a score=inf containment) would
+# serialize as bare ``Infinity``/``NaN`` tokens — Python extensions that are
+# NOT JSON (RFC 8259) and break any strict reader. Records are sanitized to
+# string sentinels on write and decoded back to floats in ``iter_jsonl``.
+_NONFINITE_SENTINELS = {
+    "Infinity": math.inf,
+    "-Infinity": -math.inf,
+    "NaN": math.nan,
+}
+
+
+def sanitize_nonfinite(obj: Any) -> Any:
+    """Deep-copy ``obj`` with every non-finite float replaced by its string
+    sentinel (``"Infinity"``/``"-Infinity"``/``"NaN"``)."""
+    if isinstance(obj, float) and not math.isfinite(obj):
+        if math.isnan(obj):
+            return "NaN"
+        return "Infinity" if obj > 0 else "-Infinity"
+    if isinstance(obj, dict):
+        return {k: sanitize_nonfinite(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [sanitize_nonfinite(v) for v in obj]
+    return obj
+
+
+def restore_nonfinite(obj: Any) -> Any:
+    """Inverse of :func:`sanitize_nonfinite`: exact sentinel strings become
+    the non-finite floats they stand for."""
+    if isinstance(obj, str):
+        return _NONFINITE_SENTINELS.get(obj, obj)
+    if isinstance(obj, dict):
+        return {k: restore_nonfinite(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [restore_nonfinite(v) for v in obj]
+    return obj
+
+
+def jsonl_line(rec: Dict[str, Any]) -> str:
+    """One strictly-RFC-8259 JSONL line for ``rec`` (no trailing newline):
+    non-finite floats sanitized to sentinels, everything non-JSON stringified.
+    ``allow_nan=False`` makes any unsanitized leak a hard error here, at the
+    writer, instead of a corrupt line some later reader chokes on."""
+    return json.dumps(sanitize_nonfinite(rec), default=str, allow_nan=False)
+
+
+def iter_jsonl(path: Path) -> List[Dict[str, Any]]:
+    """Parse a JSONL records file, tolerating the torn tail line a crashed
+    session can leave behind — the one parser under the eval cache, the trial
+    log, and the Study accessors. Non-finite sentinel strings written by
+    :func:`jsonl_line` (and the bare ``Infinity``/``NaN`` tokens of records
+    written before it existed) decode back to their floats."""
+    out: List[Dict[str, Any]] = []
+    path = Path(path)
+    if not path.exists():
+        return out
+    for line in path.read_text().splitlines():
+        if not line.strip():
+            continue
+        try:
+            out.append(restore_nonfinite(json.loads(line)))
+        except json.JSONDecodeError:
+            continue  # torn tail write from a crashed session
+    return out
+
+
+def _load_cache(path: Path, platform: str) -> Dict[str, Dict[str, Any]]:
+    """Load a JSONL evaluation cache (last record per key wins). Records are
+    namespaced by platform so one shared file serves a multi-cell session."""
+    return {
+        rec["key"]: rec for rec in iter_jsonl(path)
+        if rec.get("platform", platform) == platform and "key" in rec
+    }
+
+
+def read_cache_by_platform(path: Path) -> Dict[str, Dict[str, Dict[str, Any]]]:
+    """One pass over a shared evaluation cache, grouped by each record's
+    **stored** platform namespace: ``{namespace: {key: record}}``.
+
+    This is the cross-cell read under ``Study.histories_for``: grouping is by
+    the namespace string the record was *written* with, so ``train/a:s`` and
+    its ``train/a:s@512c`` chip-count variant land in separate buckets
+    (topology keying), and legacy records with no platform field —
+    which ``_load_cache`` would have matched against ANY platform — are
+    collected under ``""`` rather than attributed to a real cell. Per bucket,
+    the last record per key wins but keeps its first-write position, so a
+    bucket's iteration order is the append order the sibling session produced
+    (resume replays a recorded prefix of it)."""
+    grouped: Dict[str, Dict[str, Dict[str, Any]]] = {}
+    for rec in iter_jsonl(path):
+        if "key" not in rec:
+            continue
+        ns = rec.get("platform") or ""
+        grouped.setdefault(ns, {})[rec["key"]] = rec
+    return grouped
+
+
+def read_log(path: Path, platform: Optional[str] = None) -> List[Dict[str, Any]]:
+    """Recover trials from a scheduler log file (the paper's 'analyzing the
+    log file helps in finding the optimal configuration').
+
+    Tolerates a torn tail line from a crashed session (like ``_load_cache``)
+    and, given ``platform``, filters a shared multi-cell log down to one
+    cell's records (legacy records without a platform field are kept). A
+    missing file raises (a typo'd path must not read as an empty log)."""
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(f"no trial log at {path}")
+    return [
+        rec for rec in iter_jsonl(path)
+        if platform is None or rec.get("platform", platform) == platform
+    ]
+
+
+def best_from_log(path: Path, platform: Optional[str] = None) -> Dict[str, Any]:
+    """Best successful record at the **highest fidelity the log reached** —
+    an ASHA log mixes rungs, and a fast low-rung time (a cheaper experiment
+    on a different scale) must never read as the incumbent."""
+    recs = [r for r in read_log(path, platform=platform)
+            if r.get("error") is None]
+    if not recs:
+        where = f"{path}" + (f" (platform={platform!r})" if platform else "")
+        raise ValueError(f"no successful trials in log {where}")
+    top = max(float(r.get("fidelity", 1.0)) for r in recs)
+    return min((r for r in recs if float(r.get("fidelity", 1.0)) == top),
+               key=lambda r: r["time_s"])

@@ -1,0 +1,144 @@
+"""The ask/tell ``Strategy`` protocol every search algorithm implements.
+
+A strategy never runs a trial itself. It *asks* for a batch of candidate
+configurations, the :class:`~repro_torch.core.scheduler.TrialScheduler` evaluates
+them (possibly concurrently, possibly from cache), and *tells* the results
+back. Control flow that used to be welded into each algorithm's module
+(`grid_finer`, `crs`, the hillclimb driver) becomes a state machine the one
+shared engine drives — so a new optimizer (Bayesian, online, co-tuning) is a
+new Strategy subclass and nothing else.
+
+Contract
+  - ``ask(n)`` returns up to ``n`` configs (all remaining when ``n`` is
+    None). A batch never spans algorithm phases, so ``tag`` is constant per
+    batch and log parity with the legacy serial drivers holds.
+  - ``tell(trials)`` receives Trials aligned 1:1, in order, with the configs
+    of the preceding ``ask``.
+  - ``done`` flips once the strategy has nothing left to propose.
+  - ``result()`` may be called at any time (early stop) and returns the
+    best-so-far summary object.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Protocol, Sequence, runtime_checkable
+
+from repro_torch.core.scheduler import Trial
+
+
+@runtime_checkable
+class Strategy(Protocol):
+    tag: str
+
+    @property
+    def done(self) -> bool: ...
+
+    def ask(self, n: Optional[int] = None) -> List[Dict[str, Any]]: ...
+
+    def tell(self, trials: Sequence[Trial]) -> None: ...
+
+    def result(self) -> Any: ...
+
+
+class QueueStrategy:
+    """Shared plumbing: a pending queue + outstanding counter. Subclasses
+    fill ``self._pending`` and override ``_on_batch_done`` to advance their
+    phase machine once every asked config has been told back."""
+
+    tag = "strategy"
+    # model-based strategies set True to receive the study's cached
+    # observation history (via on_study_attach, or a legacy ``history``
+    # constructor kwarg if the hook is not overridden)
+    supports_history = False
+    # strategies set True to receive sibling-cell histories through the
+    # ``siblings=`` channel of on_study_attach (the cross-cell transfer
+    # seam) — the engine only passes the transfer kwargs to strategies that
+    # declare it, so legacy single-argument hooks keep working
+    supports_transfer = False
+    # which transfer modes the strategy actually implements; a requested
+    # mode outside this set is downgraded to the last supported one and the
+    # session records the EFFECTIVE mode (asking gsft for "prior" runs — and
+    # reports — its "warm" seeding, never a prior that doesn't exist)
+    transfer_modes: tuple = ()
+    # name of the constructor kwarg that Study.optimize(budget=N) maps onto
+    # (e.g. TPE's "max_trials"); None = the strategy has no trial budget
+    budget_kwarg: Optional[str] = None
+
+    def __init__(self):
+        self._pending: List[Dict[str, Any]] = []
+        self._outstanding = 0
+        self._finished = False
+
+    def on_study_attach(
+        self,
+        history: Sequence[Any],
+        siblings: Optional[Sequence[Any]] = None,
+        transfer: str = "off",
+    ) -> None:
+        """Sanctioned seam for study/cross-session state: ``history`` is the
+        prior ``(config, time_s[, tag])`` observations from the study's
+        persistent cache (this platform only, file order). Called once,
+        after construction and before the first ``ask`` — a warm-starting
+        strategy (TPE) ingests it here instead of reaching into scheduler
+        internals.
+
+        ``siblings`` is the cross-cell transfer channel: a ranked sequence of
+        :class:`~repro_torch.core.transfer.SiblingHistory` records (closest cell
+        first) that ``Study``/``run_session`` feed when a session runs with
+        ``transfer != "off"`` — and only to strategies that declare
+        ``supports_transfer``. ``transfer`` names the mode the caller asked
+        for (``"warm"``: seed initial candidates from sibling incumbents;
+        ``"prior"``: ingest sibling observations as a discounted model
+        prior). Sibling evidence must NEVER count toward a strategy's trial
+        budget. Default: ignore everything."""
+        return None
+
+    @property
+    def done(self) -> bool:
+        return self._finished
+
+    def ask(self, n: Optional[int] = None) -> List[Dict[str, Any]]:
+        take = len(self._pending) if n is None else min(int(n), len(self._pending))
+        out, self._pending = self._pending[:take], self._pending[take:]
+        self._outstanding += len(out)
+        return out
+
+    def tell(self, trials: Sequence[Trial]) -> None:
+        for trial in trials:
+            self._outstanding -= 1
+            self._observe(trial)
+        if not self._pending and self._outstanding <= 0 and not self._finished:
+            self._on_batch_done()
+
+    # -- subclass hooks
+
+    def _observe(self, trial: Trial) -> None:
+        raise NotImplementedError
+
+    def _on_batch_done(self) -> None:
+        """Called when the current phase's queue is drained; either refill
+        ``self._pending`` (next phase / round) or set ``self._finished``."""
+        self._finished = True
+
+
+# ---------------------------------------------------------------- registry
+
+STRATEGIES: Dict[str, Callable[..., Strategy]] = {}
+
+
+def register_strategy(*names: str):
+    def deco(factory):
+        for n in names:
+            STRATEGIES[n] = factory
+        return factory
+
+    return deco
+
+
+def make_strategy(name: str, space, **kwargs) -> Strategy:
+    try:
+        factory = STRATEGIES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown strategy {name!r} (known: {sorted(STRATEGIES)})"
+        ) from None
+    return factory(space, **kwargs)

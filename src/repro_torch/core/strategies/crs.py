@@ -1,0 +1,166 @@
+"""Algorithm II — Controlled Random Search (paper §IX, after W.L. Price) as
+an ask/tell strategy. Draw semantics, bound contraction, categorical
+freezing, and the stop rule match the legacy serial implementation exactly:
+all of a round's draws are generated before any result is consumed, so the
+rng stream is identical whether trials run serially or in parallel."""
+from __future__ import annotations
+
+import random
+from collections import Counter
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+from repro_torch.core.scheduler import Trial
+from repro_torch.core.space import TunableSpace
+from repro_torch.core.strategies.base import QueueStrategy, register_strategy
+
+
+@dataclass
+class CRSResult:
+    best_config: Dict[str, Any]
+    best_time: float
+    rounds: int
+    evaluations: int
+    bound_history: List[Dict[str, Any]] = field(default_factory=list)
+    stopped_early: bool = False
+
+
+def _random_config(space, bounds, frozen, rng) -> Dict[str, Any]:
+    cfg = {}
+    for p in space.params:
+        if p.name in frozen:
+            cfg[p.name] = frozen[p.name]
+        elif p.numeric:
+            lo, hi = bounds[p.name]
+            cfg[p.name] = p.sample(rng, lo, hi)
+        else:
+            cfg[p.name] = p.sample(rng)
+    return cfg
+
+
+@register_strategy("crs")
+class CRSStrategy(QueueStrategy):
+    """Cross-cell transfer (``supports_transfer``) is the cheap ``warm``
+    mode: sibling incumbents, snapped into this cell's space, join round 0's
+    draws — a transferring optimum survives the round and pulls the bound
+    contraction toward itself; a non-transferring one is just one more draw
+    that the survivor cut discards."""
+
+    supports_transfer = True
+    transfer_modes = ("warm",)
+
+    def __init__(
+        self,
+        space: TunableSpace,
+        *,
+        fixed: Optional[Dict[str, Any]] = None,
+        m: int = 12,
+        k: int = 4,
+        threshold: float = 0.0,
+        max_rounds: int = 6,
+        seed: int = 0,
+    ):
+        super().__init__()
+        self.space = space
+        self.fixed = dict(fixed or {})
+        self.m, self.k = m, k
+        self.threshold = threshold
+        self.max_rounds = max_rounds
+        self.rng = random.Random(seed)
+
+        self._numeric = [
+            p for p in space.params if p.numeric and p.name not in self.fixed
+        ]
+        self.bounds = {p.name: (p.lo, p.hi) for p in self._numeric}
+        self.frozen: Dict[str, Any] = {}
+        self.bound_history: List[Dict[str, Any]] = [dict(self.bounds)]
+
+        self._rounds_completed = 0
+        self._round_results: List[Tuple[Dict[str, Any], float]] = []
+        self._best_config: Optional[Dict[str, Any]] = None
+        self._best_time = float("inf")
+        self._prev_best_time = float("inf")  # best as of the last round boundary
+
+        self.tag = "crs/round0"
+        self._pending = self._draw_round()
+
+    def on_study_attach(self, history, siblings=None, transfer="off") -> None:
+        """Warm transfer: sibling incumbents (snapped into this space) are
+        prepended to round 0. The rng draw stream is untouched — the round's
+        random draws are already pending — so a seeded run with and without
+        siblings explores the same random configs plus the seeds."""
+        if transfer == "off" or not siblings:
+            return
+        from repro_torch.core.transfer import warm_seed_configs
+
+        self._pending = warm_seed_configs(
+            self.space, self.fixed, siblings, self._pending
+        ) + self._pending
+
+    def _draw_round(self) -> List[Dict[str, Any]]:
+        return [
+            {**_random_config(self.space, self.bounds, self.frozen, self.rng),
+             **self.fixed}
+            for _ in range(self.m)
+        ]
+
+    # -- QueueStrategy hooks
+
+    def _observe(self, trial: Trial) -> None:
+        # rank on Trial.score, not time_s: a timeout trial carries its real
+        # measurement but must never survive a round or become the best
+        self._round_results.append((dict(trial.config), trial.score))
+        # running best per trial (not per round): identical to the legacy
+        # survivors-based best for completed runs — every round's survivor[0]
+        # is that round's first-drawn minimum and the cross-round update is
+        # strict — and it keeps result() meaningful on a mid-round early stop
+        if trial.score < self._best_time:
+            self._best_config = dict(trial.config)
+            self._best_time = trial.score
+
+    def _on_batch_done(self) -> None:
+        self._round_results.sort(key=lambda ct: ct[1])  # stable: draw order ties
+        survivors = self._round_results[: self.k]
+        self._round_results = []
+
+        # (the running best is tracked per trial in _observe; survivors[0]
+        # equals it at every round boundary)
+        if self._rounds_completed == 0:
+            self._rounds_completed = 1
+        else:
+            _, new_best_time = survivors[0]
+            self._rounds_completed += 1
+            # paper's stop rule: improvement of this round's best over the
+            # best as of the previous round boundary
+            improvement = self._prev_best_time - new_best_time
+            if improvement <= self.threshold:
+                self._finished = True  # variation fell below the threshold
+                return
+
+        self._prev_best_time = self._best_time
+        if self._rounds_completed >= self.max_rounds:
+            self._finished = True
+            return
+
+        # contract bounds to the survivors' [min, max] per numeric parameter
+        for p in self._numeric:
+            vals = [c[p.name] for c, _ in survivors]
+            self.bounds[p.name] = (min(vals), max(vals))
+        # freeze categoricals to the survivor majority
+        for p in self.space.params:
+            if not p.numeric and p.name not in self.fixed:
+                maj = Counter(c[p.name] for c, _ in survivors).most_common(1)[0][0]
+                self.frozen[p.name] = maj
+        self.bound_history.append(dict(self.bounds))
+
+        self.tag = f"crs/round{self._rounds_completed}"
+        self._pending = self._draw_round()
+
+    def result(self) -> CRSResult:
+        return CRSResult(
+            best_config=dict(self._best_config or {}),
+            best_time=self._best_time,
+            rounds=self._rounds_completed,
+            evaluations=0,  # stamped by TrialScheduler.run
+            bound_history=list(self.bound_history),
+        )

@@ -1,0 +1,150 @@
+"""Algorithm I — Grid Search with Finer Tuning (paper §VIII) as an ask/tell
+strategy. Phase arithmetic is the paper's, unchanged (see the legacy module
+docstring in :mod:`repro_torch.core.grid_finer` for the bound derivation); only the
+control flow moved from a private evaluate loop to the shared engine."""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
+
+from repro_torch.core.scheduler import INFEASIBLE, Trial
+from repro_torch.core.space import TunableSpace
+from repro_torch.core.strategies.base import QueueStrategy, register_strategy
+
+
+@dataclass
+class GridResult:
+    best_config: Dict[str, Any]
+    best_time: float
+    phase1_best: Dict[str, Any]
+    phase1_time: float
+    evaluations: int
+    grid_sizes: Dict[str, int] = field(default_factory=dict)
+    stopped_early: bool = False
+
+
+def _param_grid_list(param_grid: Dict[str, List[Any]]) -> List[Dict[str, Any]]:
+    names = list(param_grid)
+    out = []
+    for combo in itertools.product(*(param_grid[n] for n in names)):
+        out.append(dict(zip(names, combo)))
+    return out
+
+
+@register_strategy("gsft", "grid")
+class GridFinerStrategy(QueueStrategy):
+    """Phase 1: evenly-stepped coarse grid over the active knobs. Phase 2:
+    the paper's finer window around the phase-1 optimum along the
+    most-influential knobs, everything else pinned.
+
+    Cross-cell transfer (``supports_transfer``) is the cheap ``warm`` mode:
+    sibling incumbents, snapped into this cell's space, are prepended to the
+    phase-1 grid — if a sibling's optimum transfers, it wins phase 1 and the
+    finer window contracts around it; if not, the full grid still runs, so
+    the sweep is never worse than untransferred."""
+
+    supports_transfer = True
+    transfer_modes = ("warm",)
+
+    def __init__(
+        self,
+        space: TunableSpace,
+        *,
+        active_params: Optional[Sequence[str]] = None,
+        fixed: Optional[Dict[str, Any]] = None,
+        samples_per_param: int = 3,
+        most_influential: Optional[Sequence[str]] = None,
+        finer_samples: int = 5,
+    ):
+        super().__init__()
+        self.space = space
+        self.fixed = dict(fixed or {})
+        self.active = list(active_params or space.most_influential)
+        self.influential = list(most_influential or space.most_influential)
+        self.finer_samples = finer_samples
+
+        defaults = space.defaults()
+        self.param_grid: Dict[str, List[Any]] = {
+            name: space.param(name).grid(samples_per_param) for name in self.active
+        }
+        base = {**defaults, **self.fixed}
+        self.tag = "gsft/grid"
+        self._phase = 1
+        self._pending = [
+            {**base, **cell} for cell in _param_grid_list(self.param_grid)
+        ]
+        self.grid_sizes = {k: len(v) for k, v in self.param_grid.items()}
+
+        self._best_config: Optional[Dict[str, Any]] = None
+        self._min_time = INFEASIBLE
+        self._phase1_best: Optional[Dict[str, Any]] = None
+        self._phase1_time = INFEASIBLE
+
+    def on_study_attach(self, history, siblings=None, transfer="off") -> None:
+        """Warm transfer: prepend each sibling's incumbent (snapped into this
+        space) to the phase-1 candidate set. History is ignored — the grid is
+        exhaustive by design and the scheduler's cache already replays
+        repeated cells for free."""
+        if transfer == "off" or not siblings:
+            return
+        from repro_torch.core.transfer import warm_seed_configs
+
+        self._pending = warm_seed_configs(
+            self.space, self.fixed, siblings, self._pending
+        ) + self._pending
+
+    # -- QueueStrategy hooks
+
+    def _observe(self, trial: Trial) -> None:
+        # Trial.score is infeasible for errored/timed-out trials — a timeout
+        # Trial's real measured time_s must not win a grid cell
+        if trial.score < self._min_time:
+            self._min_time = trial.score
+            self._best_config = dict(trial.config)
+
+    def _on_batch_done(self) -> None:
+        if self._phase == 1:
+            self._phase1_best = dict(self._best_config or {})
+            self._phase1_time = self._min_time
+            self._pending = self._finer_cells()
+            self.tag = "gsft/finer"
+            self._phase = 2
+            if not self._pending:
+                self._finished = True
+        else:
+            self._finished = True
+
+    def _finer_cells(self) -> List[Dict[str, Any]]:
+        """The paper's finer window: new bounds derive from the *old lower
+        bound* (idiosyncratic but faithful), snapped into each knob's legal
+        range; non-influential knobs pinned at the phase-1 optimum."""
+        best_config = self._best_config or {}
+        new_param_grid: Dict[str, List[Any]] = {}
+        for name in self.influential:
+            p = self.space.param(name)
+            if not p.numeric or name not in self.param_grid:
+                # categorical influential knobs keep their full choice set
+                new_param_grid[name] = p.grid(self.finer_samples)
+                continue
+            old_lower = float(self.param_grid[name][0])
+            best_value = float(best_config[name])
+            new_lower = best_value - old_lower / 2.0
+            new_upper = best_value + old_lower / 2.0
+            increment = max(new_lower / 2.0, 1e-9)
+            new_param_grid[name] = p.grid_between(new_lower, new_upper, increment)
+        self.grid_sizes.update({k: len(v) for k, v in new_param_grid.items()})
+        pinned = {k: v for k, v in best_config.items() if k not in new_param_grid}
+        return [{**pinned, **cell} for cell in _param_grid_list(new_param_grid)]
+
+    def result(self) -> GridResult:
+        return GridResult(
+            best_config=dict(self._best_config or {}),
+            best_time=self._min_time,
+            phase1_best=dict(self._phase1_best or self._best_config or {}),
+            phase1_time=(
+                self._phase1_time if self._phase1_best is not None else self._min_time
+            ),
+            evaluations=0,  # stamped by TrialScheduler.run
+            grid_sizes=dict(self.grid_sizes),
+        )

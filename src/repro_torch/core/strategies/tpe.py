@@ -1,0 +1,593 @@
+"""Tree-structured Parzen Estimator — the model-based strategy the ask/tell
+engine was built to host (ROADMAP "Next optimizer").
+
+TPE (Bergstra et al., 2011) inverts the usual surrogate direction: instead of
+modelling p(objective | config) it splits the observations at an objective
+quantile ``gamma`` into a *good* set and a *bad* set and fits one kernel
+density per parameter to each — ``l(x)`` over the good configs, ``g(x)`` over
+the bad. Maximizing expected improvement reduces to maximizing ``l(x)/g(x)``:
+candidates are drawn from ``l`` and ranked by the density ratio.
+
+Per-``Param`` kernels respect the space semantics:
+
+  - ``IntParam``/``FloatParam`` — a Parzen mixture of Gaussians centred on
+    the observed values plus one uniform prior component; samples are pushed
+    through ``Param.snap`` so ``step`` grids and ``pow2`` snapping always
+    hold. ``pow2`` params with positive bounds are modelled in log2 space
+    (the natural metric for mesh factors and block sizes).
+  - ``CatParam`` — a Laplace-smoothed categorical over ``choices``.
+
+**Batched acquisition.** Proposals are generated a *round* at a time, every
+round drawn before any of its results is consumed — exactly the CRS
+discipline — so ``TrialScheduler.run(batch_size=n)`` keeps its thread pool
+full and the proposed-config *set* is identical for any batch size (the
+determinism tests assert this). Within a round, each proposal after the first
+is conditioned on a **constant-liar penalty**: the already-proposed (in-
+flight) configs are told a pessimistic lie (the worst observed objective), so
+they join the *bad* density and the ratio ``l/g`` repels the next candidate
+away from them — diversity without waiting for results.
+
+**Warm start.** ``history`` (the tuner feeds it from the TrialScheduler's
+persistent JSONL cache as ``(config, time_s, tag)`` triples) seeds the
+observation set; entries the strategy itself proposed — tpe-tagged cache
+records, and untagged/explicit ``(config, time_s)`` pairs — also count
+toward ``max_trials``. So a re-run over a complete cache proposes nothing
+(zero fresh evaluations), a re-run over a crashed session's cache resumes
+with exactly the unpaid remainder of its budget, and records another
+strategy left on the platform (a GSFT sweep sharing the same ``--cache``)
+are free model evidence rather than silent budget theft.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.core.scheduler import Trial, config_key
+from repro_torch.core.space import CatParam, Param, TunableSpace
+from repro_torch.core.strategies.base import QueueStrategy, register_strategy
+from repro_torch.core.surrogate import SURROGATE_MODES, CostSurrogate
+
+_SQRT_2PI = math.sqrt(2.0 * math.pi)
+
+
+@dataclass
+class TPEResult:
+    best_config: Dict[str, Any]
+    best_time: float
+    rounds: int
+    evaluations: int
+    n_observations: int = 0
+    warm_started: int = 0  # observations seeded from the persistent cache
+    timeouts: int = 0
+    stopped_early: bool = False
+    transfer_mode: str = "off"  # off | warm | prior (cross-cell siblings)
+    sibling_observations: int = 0  # prior points ingested — NEVER budget-charged
+    surrogate: str = "off"  # off | rank (learned cost pre-ranking)
+    surrogate_rows: int = 0  # training rows at the last fit — NEVER budget-charged
+
+
+# ------------------------------------------------------------- kernel densities
+
+
+class _NumericDensity:
+    """Parzen estimator for an Int/Float param: a mixture of Gaussians at the
+    observed values plus one uniform prior component over the bounds. ``pow2``
+    params with lo >= 1 live in log2 space.
+
+    ``weights`` (default: all 1.0) scale each observation's mass in the
+    mixture — the cross-cell transfer prior feeds sibling observations with a
+    distance-decayed weight < 1, so near-cell evidence shapes the density
+    strongly and far-cell evidence barely at all, while the local cell's own
+    observations keep full weight."""
+
+    def __init__(
+        self,
+        param: Param,
+        values: Sequence[Any],
+        prior_weight: float = 1.0,
+        weights: Optional[Sequence[float]] = None,
+    ):
+        self.param = param
+        self.log2 = bool(getattr(param, "pow2", False)) and param.lo >= 1
+        lo, hi = float(param.lo), float(param.hi)
+        if self.log2:
+            lo, hi = math.log2(lo), math.log2(max(hi, lo * 2.0))
+        self.lo, self.hi = lo, hi
+        self.width = max(hi - lo, 1e-9)
+        self.points = [self._fwd(v) for v in values]
+        self.weights = (
+            [1.0] * len(self.points) if weights is None else
+            [max(float(w), 0.0) for w in weights]
+        )
+        self.mass = sum(self.weights)
+        # bandwidth shrinks as (weighted) evidence accumulates, floored so
+        # late rounds still explore the step/pow2 neighbourhood
+        self.sigma = max(self.width / max(self.mass, 1), self.width * 0.08)
+        self.prior_weight = prior_weight
+        self.total = self.mass + prior_weight
+
+    def _fwd(self, v) -> float:
+        v = float(v)
+        return math.log2(max(v, 2.0 ** self.lo)) if self.log2 else v
+
+    def sample(self, rng):
+        r = rng.random() * self.total
+        if r < self.prior_weight or not self.points:
+            x = self.lo + rng.random() * self.width
+        else:
+            # a dedicated draw picks the mixture component: with unit weights
+            # this selects points[int(r2)] — byte-identical rng consumption
+            # to the unweighted implementation, so pre-transfer seeded
+            # studies replay the same proposal stream
+            r2 = rng.random() * max(self.mass, 1e-12)
+            mu = self.points[-1]
+            for point, w in zip(self.points, self.weights):
+                if r2 < w:
+                    mu = point
+                    break
+                r2 -= w
+            x = rng.gauss(mu, self.sigma)
+        return self.param.snap(2.0 ** x if self.log2 else x)
+
+    def logpdf(self, v) -> float:
+        x = self._fwd(v)
+        dens = self.prior_weight / self.width
+        for mu, w in zip(self.points, self.weights):
+            z = (x - mu) / self.sigma
+            dens += w * math.exp(-0.5 * z * z) / (self.sigma * _SQRT_2PI)
+        return math.log(dens / self.total)
+
+
+class _CategoricalDensity:
+    """Laplace-smoothed categorical over a CatParam's choices; observation
+    ``weights`` discount sibling-cell evidence like in _NumericDensity."""
+
+    def __init__(
+        self,
+        param: CatParam,
+        values: Sequence[Any],
+        prior_weight: float = 1.0,
+        weights: Optional[Sequence[float]] = None,
+    ):
+        self.param = param
+        if weights is None:
+            weights = [1.0] * len(values)
+        counts = {c: prior_weight for c in param.choices}
+        for v, w in zip(values, weights):
+            counts[param.snap(v)] += max(float(w), 0.0)
+        total = sum(counts.values())
+        self.choices = list(param.choices)
+        self.probs = [counts[c] / total for c in self.choices]
+
+    def sample(self, rng):
+        r = rng.random()
+        acc = 0.0
+        for c, p in zip(self.choices, self.probs):
+            acc += p
+            if r < acc:
+                return c
+        return self.choices[-1]
+
+    def logpdf(self, v) -> float:
+        v = self.param.snap(v)
+        return math.log(self.probs[self.choices.index(v)])
+
+
+def _density(
+    param: Param,
+    values: Sequence[Any],
+    prior_weight: float,
+    weights: Optional[Sequence[float]] = None,
+):
+    if param.numeric:
+        return _NumericDensity(param, values, prior_weight, weights)
+    return _CategoricalDensity(param, values, prior_weight, weights)
+
+
+# ------------------------------------------------------------------- strategy
+
+
+@register_strategy("tpe", "bayes")
+class TPEStrategy(QueueStrategy):
+    """Tree-structured Parzen Estimator with round-batched EI acquisition.
+
+    Parameters
+      max_trials     trial budget; own warm-start history counts toward it
+      n_startup      random trials before the first model round
+      gamma          good/bad split quantile (fraction of obs in the good set)
+      n_candidates   EI candidates sampled from ``l`` per proposal
+      round_size     proposals per model round (size the thread pool to this)
+      history        prior ``(config, time_s[, tag])`` observations — own
+                     (tpe-tagged or untagged) entries are budget-charged,
+                     foreign-strategy entries are free model evidence
+      seed           rng seed — the proposed-config stream is a pure function
+                     of (seed, told results, siblings), independent of batch
+                     size
+      transfer_weight  scale on the distance-decayed sibling weights of the
+                     cross-cell transfer prior (1.0 = exp(-distance))
+      transfer_ramp  local observations over which the sibling prior fades
+                     linearly to zero (default 2×n_startup) — late rounds are
+                     pure local TPE, so a misleading sibling (the outlier
+                     cell) costs a bounded number of early proposals, never
+                     the whole budget
+      surrogate      ``"rank"`` pre-ranks each model round's proposals with a
+                     :class:`~repro_torch.core.surrogate.CostSurrogate` trained on
+                     the observations (local + sibling namespaces): the round
+                     over-samples ``surrogate_oversample``× lie-conditioned
+                     proposals and keeps the predicted-fastest ``round_size``.
+                     Startup coverage, budget accounting and cache identity
+                     are untouched — ranking only reorders within a round
+      surrogate_oversample  acquisition over-sampling factor under ``rank``
+      platform       this cell's cache namespace — the surrogate's local
+                     training rows and prediction context are keyed by it
+    """
+
+    supports_history = True  # Study/tuner feed the persistent eval cache in
+    supports_transfer = True  # on_study_attach takes the siblings= channel
+    supports_surrogate = True  # EngineConfig.surrogate plumbs to surrogate=
+    transfer_modes = ("warm", "prior")
+    budget_kwarg = "max_trials"  # Study.optimize(budget=N) maps here
+
+    def __init__(
+        self,
+        space: TunableSpace,
+        *,
+        fixed: Optional[Dict[str, Any]] = None,
+        max_trials: int = 48,
+        n_startup: Optional[int] = None,
+        gamma: float = 0.25,
+        n_candidates: int = 24,
+        round_size: int = 8,
+        prior_weight: float = 1.0,
+        seed: int = 0,
+        history: Optional[Sequence[Tuple[Dict[str, Any], float]]] = None,
+        transfer_weight: float = 1.0,
+        transfer_ramp: Optional[int] = None,
+        surrogate: str = "off",
+        surrogate_oversample: int = 3,
+        platform: Optional[str] = None,
+    ):
+        super().__init__()
+        import random
+
+        if surrogate not in SURROGATE_MODES:
+            raise ValueError(
+                f"surrogate must be one of {SURROGATE_MODES}, got {surrogate!r}"
+            )
+        self.surrogate = surrogate
+        self.surrogate_oversample = max(1, int(surrogate_oversample))
+        self.platform = platform or ""
+        self.surrogate_rows = 0  # rows at the last fit (telemetry only)
+        self.space = space
+        self.fixed = dict(fixed or {})
+        self.max_trials = int(max_trials)
+        self.gamma = float(gamma)
+        self.n_candidates = max(1, int(n_candidates))
+        self.round_size = max(1, int(round_size))
+        self.prior_weight = float(prior_weight)
+        self.transfer_weight = float(transfer_weight)
+        self._seed = seed
+        self.rng = random.Random(seed)
+        self.n_startup = int(n_startup) if n_startup is not None else min(
+            10, max(4, self.max_trials // 4)
+        )
+        self.transfer_ramp = (
+            int(transfer_ramp) if transfer_ramp is not None
+            else 2 * self.n_startup
+        )
+
+        self._free = [p for p in space.params if p.name not in self.fixed]
+        self._observations: List[Tuple[Dict[str, Any], float]] = []
+        self._paid = 0  # budget-charged observations (own proposals only)
+        self._best_config: Optional[Dict[str, Any]] = None
+        self._best_time = float("inf")
+        self._rounds = 0
+        self.warm_started = 0
+        # cross-cell transfer state (set by on_study_attach):
+        self.transfer_mode = "off"
+        # prior mode: sibling (config, weight) points pre-split into good/bad
+        # by each sibling's OWN objective quantile — sibling times live on a
+        # different cell's scale, so they must never be ranked against local
+        # times, only donate density mass
+        self._sibling_good: List[Tuple[Dict[str, Any], float]] = []
+        self._sibling_bad: List[Tuple[Dict[str, Any], float]] = []
+        # warm mode: sibling incumbents snapped into this space, closest
+        # sibling first — consumed as the first startup proposals
+        self._seed_configs: List[Dict[str, Any]] = []
+        # surrogate training rows donated by siblings: (config, time_s,
+        # namespace) — flows even with transfer="off" (model-form transfer)
+        self._surrogate_sibling_rows: List[Tuple[Dict[str, Any], float, str]] = []
+
+        self.tag = "tpe/startup"
+        self.on_study_attach(history or ())
+
+    def on_study_attach(self, history, siblings=None, transfer="off") -> None:
+        """Warm-start + transfer seam (the Strategy protocol's study hook):
+        ingest prior ``(config, time_s[, tag])`` observations and optional
+        sibling-cell histories, then recompute the pending proposals — the
+        proposal stream is a pure function of ``(seed, observations,
+        siblings)``, so attaching after construction is byte-identical to
+        passing everything to the constructor. Must run before the first
+        ``ask``.
+
+        ``siblings`` (:class:`~repro_torch.core.transfer.SiblingHistory` records,
+        closest first) are ingested per ``transfer``: ``"prior"`` adds every
+        sibling observation to the Parzen densities with the sibling's
+        distance-decayed weight, pre-split by the sibling's own good/bad
+        quantile; ``"warm"`` seeds the startup batch with each sibling's
+        incumbent. Either way sibling evidence is free — it never counts
+        toward ``max_trials`` and never marks a config as already-proposed.
+        """
+        if self._outstanding:
+            raise RuntimeError(
+                "on_study_attach must be called before trials are in flight"
+            )
+        import random
+
+        for entry in history or ():
+            cfg, t = entry[0], float(entry[1])
+            tag = entry[2] if len(entry) > 2 else None
+            full = self._canon(cfg)
+            if full is None:
+                continue  # foreign-space record / violates `fixed`
+            # charge own proposals (tpe-tagged cache records; untagged =
+            # explicit history) against the budget; another strategy's
+            # records are free evidence, not budget theft
+            charged = tag is None or str(tag).startswith("tpe")
+            self._record(full, t, charged=charged)
+        self.warm_started = len(self._observations)
+        if siblings is not None:
+            self._ingest_siblings(siblings, transfer)
+            self._ingest_surrogate_rows(siblings)
+        self.rng = random.Random(self._seed)
+        self._finished = False
+        self._pending = []
+        self._refill()
+
+    def _ingest_siblings(self, siblings, transfer: str) -> None:
+        self._sibling_good, self._sibling_bad = [], []
+        self._seed_configs = []
+        self.transfer_mode = "off"
+        if transfer == "off" or not siblings:
+            return
+        self.transfer_mode = transfer
+        seed_seen = set()
+        for sib in siblings:
+            w = self.transfer_weight * math.exp(-float(sib.distance))
+            if w <= 1e-6:
+                continue
+            local: List[Tuple[Dict[str, Any], float]] = []
+            for entry in sib.trials:
+                full = self._canon(entry[0])
+                if full is not None and math.isfinite(float(entry[1])):
+                    local.append((full, float(entry[1])))
+            if not local:
+                continue
+            if transfer == "prior":
+                good, bad = self._split([(c, t, w) for c, t in local])
+                self._sibling_good += good
+                self._sibling_bad += bad
+            else:  # warm: the sibling's incumbent seeds the startup batch
+                inc = min(local, key=lambda ct: ct[1])[0]
+                key = config_key(inc)
+                if key not in seed_seen:
+                    seed_seen.add(key)
+                    self._seed_configs.append(dict(inc))
+
+    def _ingest_surrogate_rows(self, siblings) -> None:
+        """Sibling trials as surrogate training rows, kept separate from the
+        Parzen densities: the surrogate channel is live whenever
+        ``surrogate != off`` — including ``transfer="off"`` — because the
+        per-namespace intercept makes foreign scales safe for the *model*
+        where they are unsafe for the density split."""
+        self._surrogate_sibling_rows = []
+        if self.surrogate == "off":
+            return
+        for sib in siblings:
+            for entry in sib.trials:
+                full = self._canon(entry[0])
+                t = float(entry[1])
+                if full is not None and math.isfinite(t) and t > 0.0:
+                    self._surrogate_sibling_rows.append((full, t, sib.namespace))
+
+    @property
+    def sibling_observations(self) -> int:
+        return len(self._sibling_good) + len(self._sibling_bad)
+
+    # ------------------------------------------------------------ bookkeeping
+
+    def _canon(self, cfg: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """Snap a config onto this space; None if it belongs to a different
+        space (doesn't cover this one's knobs — a foreign cache record must
+        not collapse to the defaults and eat budget) or contradicts the
+        pinned ``fixed`` values."""
+        if not all(p.name in cfg for p in self.space.params):
+            return None
+        full = {p.name: p.snap(cfg[p.name]) for p in self.space.params}
+        for k, v in self.fixed.items():
+            if k in cfg and cfg[k] != v:
+                return None
+            full[k] = v
+        return full
+
+    def _record(self, cfg: Dict[str, Any], t: float, charged: bool = True) -> None:
+        self._observations.append((cfg, t))
+        if charged:
+            self._paid += 1
+        if t < self._best_time:
+            self._best_config, self._best_time = dict(cfg), t
+
+    # -- QueueStrategy hooks
+
+    def _observe(self, trial: Trial) -> None:
+        full = self._canon(trial.config)
+        if full is not None:
+            # Trial.score: non-ok trials (errors, over-deadline measurements)
+            # enter the model as infeasible, same as before timeouts kept
+            # their real time_s
+            self._record(full, trial.score)
+
+    def _on_batch_done(self) -> None:
+        self._refill()
+
+    def _refill(self) -> None:
+        remaining = self.max_trials - self._paid
+        if remaining <= 0:
+            self._finished = True
+            return
+        # any local evidence defuses random startup; sibling prior points do
+        # too, but only down to a floor of genuinely local random trials — a
+        # misleading sibling (outlier cell) must not strip the cell of ALL
+        # exploration of its own objective
+        n_local = len(self._observations)
+        if self.sibling_observations:
+            floor = min(self.n_startup, max(2, self.n_startup // 3))
+            n_obs = n_local + min(
+                self.sibling_observations, max(0, self.n_startup - floor)
+            )
+        else:
+            n_obs = n_local
+        if n_obs < self.n_startup:
+            k = min(remaining, self.n_startup - n_obs)
+            self.tag = "tpe/startup"
+            seen = {config_key(c) for c, _ in self._observations}
+            batch: List[Dict[str, Any]] = []
+            # warm transfer: sibling incumbents go first (they ARE proposals —
+            # evaluated in this cell and budget-charged like any other)
+            while self._seed_configs and len(batch) < k:
+                cfg = self._seed_configs.pop(0)
+                if config_key(cfg) in seen:
+                    continue
+                seen.add(config_key(cfg))
+                batch.append(cfg)
+            while len(batch) < k:
+                cfg = self._random_config(seen)
+                seen.add(config_key(cfg))
+                batch.append(cfg)
+            self._pending = batch
+        else:
+            self._rounds += 1
+            self.tag = f"tpe/round{self._rounds}"
+            self._pending = self._propose_round(min(remaining, self.round_size))
+
+    # ------------------------------------------------------------- proposals
+
+    def _random_config(self, seen) -> Dict[str, Any]:
+        for _ in range(16):  # bounded novelty retries (spaces can exhaust)
+            cfg = {p.name: p.sample(self.rng) for p in self._free}
+            cfg.update(self.fixed)
+            if config_key(cfg) not in seen:
+                return cfg
+        return cfg
+
+    def _worst_finite(self) -> float:
+        finite = [t for _, t in self._observations if math.isfinite(t)]
+        return max(finite) if finite else 1.0
+
+    def _split(
+        self, obs: List[Tuple[Dict[str, Any], float, float]]
+    ) -> Tuple[List[Tuple[Dict[str, Any], float]], List[Tuple[Dict[str, Any], float]]]:
+        """Rank ``(config, time, weight)`` triples by time and split at the
+        ``gamma`` quantile, keeping each observation's density weight
+        attached: ``([(config, weight)...] good, [...] bad)``."""
+        ranked = sorted(obs, key=lambda ct: ct[1])  # stable: insertion order ties
+        n_good = max(1, min(len(ranked) - 1, int(math.ceil(self.gamma * len(ranked)))))
+        return (
+            [(c, w) for c, _, w in ranked[:n_good]],
+            [(c, w) for c, _, w in ranked[n_good:]],
+        )
+
+    def _fit_surrogate(self) -> Optional[CostSurrogate]:
+        """Fresh fit over (local observations + sibling rows); None when the
+        surrogate is off or under-trained. Refit every round — the training
+        set is a deterministic function of (observations, siblings), which
+        keeps the proposal stream replayable."""
+        if self.surrogate == "off":
+            return None
+        rows = [
+            (c, t, self.platform)
+            for c, t in self._observations
+            if math.isfinite(t) and t > 0.0
+        ] + self._surrogate_sibling_rows
+        model = CostSurrogate(self.space).fit(rows)
+        self.surrogate_rows = model.n_rows
+        return model if model.ready else None
+
+    def _propose_round(self, k: int) -> List[Dict[str, Any]]:
+        """k EI-ranked proposals; each one conditions the next via a constant
+        lie at the worst observed objective (in-flight configs fall into the
+        bad density, so l/g repels repeats — batch diversity). Sibling prior
+        points join the good/bad densities with their distance-decayed
+        weights but are split by their OWN cell's quantile, never ranked
+        against local times.
+
+        Under ``surrogate="rank"`` the round generates ``k × oversample``
+        lie-conditioned proposals and returns the ``k`` the cost model
+        predicts fastest (stable order) — the predicted frontier. Only those
+        k are ever proposed, so budget accounting and cache identity are
+        byte-identical to ``off``; the surviving set is a pure function of
+        (seed, observations, siblings, training set)."""
+        model = self._fit_surrogate()
+        n = k if model is None else k * self.surrogate_oversample
+        lie = self._worst_finite()
+        lies: List[Tuple[Dict[str, Any], float]] = []
+        seen = {config_key(c) for c, _ in self._observations}
+        out: List[Dict[str, Any]] = []
+        # the sibling prior fades linearly as local evidence accumulates:
+        # full strength with zero local observations, gone at transfer_ramp —
+        # a misleading sibling costs early proposals, never the whole budget
+        fade = max(
+            0.0, 1.0 - len(self._observations) / max(self.transfer_ramp, 1)
+        )
+        sib_good = [(c, w * fade) for c, w in self._sibling_good if w * fade > 0]
+        sib_bad = [(c, w * fade) for c, w in self._sibling_bad if w * fade > 0]
+        for _ in range(n):
+            local = [(c, t, 1.0) for c, t in self._observations] + \
+                    [(c, t, 1.0) for c, t in lies]
+            good, bad = self._split(local)
+            cfg = self._sample_ei(good + sib_good, bad + sib_bad, seen)
+            seen.add(config_key(cfg))
+            lies.append((cfg, lie))
+            out.append(cfg)
+        if model is not None and len(out) > k:
+            out = model.rank(out, self.platform)[:k]
+        return out
+
+    def _sample_ei(self, good, bad, seen) -> Dict[str, Any]:
+        l_dens = {p.name: _density(p, [c[p.name] for c, _ in good],
+                                   self.prior_weight, [w for _, w in good])
+                  for p in self._free}
+        g_dens = {p.name: _density(p, [c[p.name] for c, _ in bad],
+                                   self.prior_weight, [w for _, w in bad])
+                  for p in self._free}
+        novel_best, novel_score = None, -math.inf
+        for _ in range(self.n_candidates):
+            cfg = {name: d.sample(self.rng) for name, d in l_dens.items()}
+            cfg.update(self.fixed)
+            score = sum(
+                l_dens[n].logpdf(cfg[n]) - g_dens[n].logpdf(cfg[n]) for n in l_dens
+            )
+            if config_key(cfg) not in seen and score > novel_score:
+                novel_best, novel_score = cfg, score
+        if novel_best is not None:
+            return novel_best
+        # every candidate already observed/in-flight: fall back to exploration
+        # (which itself retries for novelty before giving up)
+        return self._random_config(seen)
+
+    # ---------------------------------------------------------------- result
+
+    def result(self) -> TPEResult:
+        return TPEResult(
+            best_config=dict(self._best_config or {}),
+            best_time=self._best_time,
+            rounds=self._rounds,
+            evaluations=0,  # stamped by TrialScheduler.run
+            n_observations=len(self._observations),
+            warm_started=self.warm_started,
+            transfer_mode=self.transfer_mode,
+            sibling_observations=self.sibling_observations,
+            surrogate=self.surrogate,
+            surrogate_rows=self.surrogate_rows,
+        )

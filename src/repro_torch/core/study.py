@@ -1,0 +1,1218 @@
+"""Study — the persistent, resumable tuning-session object (the user-facing
+API every driver now goes through).
+
+The paper's Admin workflow is "pick a platform × algorithm, run, read the
+reduction". A :class:`Study` is that workflow made durable: it owns one
+storage directory (trial log, persistent evaluation cache, session manifest
+with space/platform/seed provenance) and accepts any number of heterogeneous
+sessions against it:
+
+    study = Study.create("results/studies/wc")
+    study.optimize("wordcount", "gsft", evaluator)       # session 1
+    study.optimize("wordcount", "tpe", evaluator,        # session 2 —
+                   budget=48)                            #   warm-started free
+    study.report()                                       # the reduction table
+
+Because every session shares the study's evaluation cache, a later session
+replays earlier measurements for nothing, a model-based strategy (TPE) seeds
+its observation history from them through the sanctioned
+``Strategy.on_study_attach(history)`` seam, and an interrupted session is
+re-entered with :meth:`Study.resume` paying only the unpaid remainder of its
+budget.
+
+Engine knobs (parallel workers, isolation backend, per-trial timeout,
+retries, patience, batch size) live on one validated :class:`EngineConfig`
+instead of a kwarg forest; ``repro_torch.core.tuner.tune`` remains as a thin
+deprecated shim over a throwaway in-memory Study.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import json
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence
+
+from repro_torch.core.scheduler import (
+    TrialScheduler,
+    iter_jsonl,
+    jsonl_line,
+    read_cache_by_platform,
+    read_log,
+)
+from repro_torch.core.space import SPACES, TunableSpace
+from repro_torch.core.strategies import STRATEGIES, make_strategy
+from repro_torch.core.strategies.base import QueueStrategy
+from repro_torch.core.transfer import (
+    TRANSFER_MODES,
+    SiblingHistory,
+    Similarity,
+    default_similarity,
+    parse_namespace,
+)
+
+__all__ = ["EngineConfig", "Study", "StudyCell", "TuneOutcome", "run_session"]
+
+_ISOLATIONS = ("inline", "subprocess")
+
+
+# ------------------------------------------------------------- engine config
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Every TrialScheduler/driver knob, validated in one place.
+
+    ``workers``     parallel trials per batch (thread pool / worker processes)
+    ``isolation``   ``"inline"`` (threads, soft timeouts) or ``"subprocess"``
+                    (worker processes, hard SIGKILL deadlines)
+    ``timeout_s``   per-trial deadline; None = unlimited
+    ``retries``     per-trial retries before recording a failure
+    ``patience``    stop a session when the best hasn't improved in N batches
+    ``batch_size``  max configs per ask() batch (None = whole phase)
+    ``clear_caches`` clear jit caches before every fresh trial (serial path)
+    ``pin_devices`` restrict each subprocess worker to one of N device slots
+                    (env set before the worker's first jax import), so N
+                    workers run N truly concurrent device trials; requires
+                    ``isolation="subprocess"``
+    ``prefilter``   static feasibility gate at propose time: ``"static"``
+                    rejects provably-doomed configs (clamp aliases, VMEM/HBM
+                    overflow) as ``infeasible_static`` records without
+                    charging a worker; ``"off"`` (default) runs everything
+    ``surrogate``   learned cost model over the study cache: ``"rank"``
+                    pre-ranks a surrogate-capable strategy's acquisition
+                    candidates at the predicted frontier (TPE over-samples,
+                    the :class:`~repro_torch.core.surrogate.CostSurrogate` keeps
+                    the predicted-fastest); ``"off"`` (default) disables it.
+                    Strategies without ``supports_surrogate`` ignore it
+    """
+
+    workers: int = 1
+    isolation: str = "inline"
+    timeout_s: Optional[float] = None
+    retries: int = 0
+    patience: Optional[int] = None
+    batch_size: Optional[int] = None
+    clear_caches: bool = False
+    pin_devices: Optional[int] = None
+    prefilter: str = "off"
+    surrogate: str = "off"
+
+    def __post_init__(self):
+        if int(self.workers) < 1:
+            raise ValueError(f"EngineConfig.workers must be >= 1, got {self.workers}")
+        if self.isolation not in _ISOLATIONS:
+            raise ValueError(
+                f"EngineConfig.isolation must be one of {_ISOLATIONS}, "
+                f"got {self.isolation!r}"
+            )
+        if self.timeout_s is not None and not self.timeout_s > 0:
+            raise ValueError(
+                f"EngineConfig.timeout_s must be positive or None, got {self.timeout_s}"
+            )
+        if int(self.retries) < 0:
+            raise ValueError(f"EngineConfig.retries must be >= 0, got {self.retries}")
+        if self.patience is not None and int(self.patience) < 1:
+            raise ValueError(
+                f"EngineConfig.patience must be >= 1 or None, got {self.patience}"
+            )
+        if self.batch_size is not None and int(self.batch_size) < 1:
+            raise ValueError(
+                f"EngineConfig.batch_size must be >= 1 or None, got {self.batch_size}"
+            )
+        if self.pin_devices is not None:
+            if int(self.pin_devices) < 1:
+                raise ValueError(
+                    f"EngineConfig.pin_devices must be >= 1 or None, "
+                    f"got {self.pin_devices}"
+                )
+            if self.isolation != "subprocess":
+                raise ValueError(
+                    "EngineConfig.pin_devices requires isolation='subprocess' "
+                    "— inline threads share one jax runtime and cannot be "
+                    "pinned per trial"
+                )
+        PREFILTER_MODES = ("off", "static")  # the reference's feasibility.py
+
+        if self.prefilter not in PREFILTER_MODES:
+            raise ValueError(
+                f"EngineConfig.prefilter must be one of {PREFILTER_MODES}, "
+                f"got {self.prefilter!r}"
+            )
+        if self.prefilter != "off":
+            raise NotImplementedError(
+                f"EngineConfig.prefilter={self.prefilter!r}: the port has no "
+                "static prefilter yet (ROADMAP Queue 1, the static prefilter "
+                "for kernel-cuda/ cells)"
+            )
+        from repro_torch.core.surrogate import SURROGATE_MODES
+
+        if self.surrogate not in SURROGATE_MODES:
+            raise ValueError(
+                f"EngineConfig.surrogate must be one of {SURROGATE_MODES}, "
+                f"got {self.surrogate!r}"
+            )
+
+    def scheduler_kwargs(self) -> Dict[str, Any]:
+        """Kwargs for :class:`TrialScheduler` (and the ``tune`` shim)."""
+        return dict(
+            max_workers=self.workers,
+            timeout_s=self.timeout_s,
+            retries=self.retries,
+            isolation=self.isolation,
+            clear_caches_between_trials=self.clear_caches,
+            pin_devices=self.pin_devices,
+            prefilter=self.prefilter,
+        )
+
+    def run_kwargs(self) -> Dict[str, Any]:
+        """Kwargs for :meth:`TrialScheduler.run`."""
+        return dict(batch_size=self.batch_size, patience=self.patience)
+
+    def replace(self, **changes: Any) -> "EngineConfig":
+        return dataclasses.replace(self, **changes)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EngineConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in (d or {}).items() if k in names})
+
+
+# ------------------------------------------------------------- tune outcome
+
+
+@dataclass
+class TuneOutcome:
+    platform: str
+    algorithm: str
+    default_time: float
+    best_time: float
+    best_config: Dict[str, Any]
+    evaluations: int
+    detail: Any = None
+    # per-SESSION deltas (not scheduler-lifetime totals): a shared multi-cell
+    # or multi-session scheduler must not inflate every report
+    cache_stats: Optional[Dict[str, int]] = None
+    timeouts: int = 0  # trials that hit the (soft) per-trial deadline
+    # proposals the static prefilter rejected without running them — their
+    # own counter, never folded into evaluations or timeouts
+    infeasible_static: int = 0
+
+    @property
+    def reduction_pct(self) -> float:
+        """The paper's headline metric: % reduction in execution time vs. the
+        all-defaults configuration."""
+        if self.default_time in (0.0, float("inf")):
+            return 0.0
+        return 100.0 * (self.default_time - self.best_time) / self.default_time
+
+    def summary(self) -> Dict[str, Any]:
+        out = {
+            "platform": self.platform,
+            "algorithm": self.algorithm,
+            "default_time_s": self.default_time,
+            "best_time_s": self.best_time,
+            "reduction_pct": round(self.reduction_pct, 2),
+            "evaluations": self.evaluations,
+            "timeouts": self.timeouts,
+            "best_config": self.best_config,
+        }
+        if self.infeasible_static:
+            out["infeasible_static"] = self.infeasible_static
+        if self.cache_stats:
+            out["cache_stats"] = self.cache_stats
+        # multi-fidelity provenance: an ASHA session's per-rung counters ride
+        # into sessions.jsonl so fidelity savings are auditable after the fact
+        if hasattr(self.detail, "rung_table"):
+            out["rungs"] = self.detail.rung_table()
+            out["best_fidelity"] = self.detail.best_fidelity
+        return out
+
+
+# ------------------------------------------------------------ session engine
+
+
+def run_session(
+    scheduler: TrialScheduler,
+    platform: str,
+    algorithm: str,
+    space: TunableSpace,
+    *,
+    fixed: Optional[Dict[str, Any]] = None,
+    active_params: Optional[Sequence[str]] = None,
+    batch_size: Optional[int] = None,
+    patience: Optional[int] = None,
+    siblings: Optional[Sequence[SiblingHistory]] = None,
+    transfer: str = "off",
+    **algo_kwargs,
+) -> TuneOutcome:
+    """One tuning session on an already-configured scheduler: measure the
+    defaults, drive the strategy, report per-session deltas.
+
+    This is the engine path under :meth:`Study.optimize` and the
+    ``tuner.tune`` shim; share one scheduler across calls to share its memo
+    and persistent cache (the multi-cell driver does).
+
+    ``siblings``/``transfer`` is the cross-cell channel: when ``transfer``
+    is not ``"off"`` and the strategy declares ``supports_transfer``, the
+    sibling histories ride into ``on_study_attach`` alongside the cached
+    history (``Study._run_session`` computes them via
+    :meth:`Study.histories_for`; resume replays the recorded set).
+    """
+    if transfer not in TRANSFER_MODES:
+        raise ValueError(
+            f"transfer must be one of {TRANSFER_MODES}, got {transfer!r}"
+        )
+    factory = _factory_for(algorithm)
+    # warm-start a model-based strategy from the persistent eval cache
+    # *before* the defaults trial lands in it: a re-run over a complete cache
+    # resumes with its full observation history and proposes nothing fresh
+    attach_history = (
+        getattr(factory, "supports_history", False)
+        and "history" not in algo_kwargs
+    )
+    history = scheduler.cached_observations() if attach_history else None
+    has_transfer = (
+        transfer != "off"
+        and bool(siblings)
+        and getattr(factory, "supports_transfer", False)
+    )
+    # strategies that override the on_study_attach seam receive history
+    # there; legacy supports_history strategies — including protocol-only
+    # classes with no hook attribute at all — still get the constructor kwarg
+    hook = getattr(factory, "on_study_attach", None)
+    uses_hook = hook is not None and hook is not QueueStrategy.on_study_attach
+    if attach_history and not uses_hook:
+        algo_kwargs["history"] = history
+    # a surrogate-enabled strategy predicts in this cell's namespace: the
+    # session's platform is its context unless the caller pinned one
+    if (
+        getattr(factory, "supports_surrogate", False)
+        and str(algo_kwargs.get("surrogate", "off")) != "off"
+    ):
+        algo_kwargs.setdefault("platform", platform)
+
+    before = scheduler.stats_snapshot()
+    defaults = {**space.defaults(), **(fixed or {})}
+    # a multi-fidelity session caps out at its schedule's top rung — the
+    # defaults yardstick must be measured at the SAME fidelity or the
+    # reduction comparison mixes scales
+    top_fidelity = (
+        float(algo_kwargs.get("max_fidelity", 1.0)) if algorithm == "asha"
+        else 1.0
+    )
+    default_time = scheduler.evaluate(
+        defaults, tag="default", fidelity=top_fidelity
+    )
+
+    if algorithm in ("gsft", "grid"):
+        algo_kwargs.setdefault("active_params", active_params)
+    strategy = make_strategy(algorithm, space, fixed=fixed, **algo_kwargs)
+    # the surrogate's training channel: sibling histories flow to a
+    # surrogate-enabled strategy even with transfer="off" — the cost model
+    # (not the Parzen prior) is what consumes them there
+    has_surrogate = (
+        bool(siblings) and getattr(strategy, "surrogate", "off") != "off"
+    )
+    if uses_hook and (attach_history or has_transfer or has_surrogate):
+        transfer_kwargs = (
+            {"siblings": list(siblings), "transfer": transfer}
+            if (has_transfer or has_surrogate) else {}
+        )
+        strategy.on_study_attach(
+            history if attach_history else (), **transfer_kwargs
+        )
+    result = scheduler.run(strategy, batch_size=batch_size, patience=patience)
+    best_config, best_time = result.best_config, result.best_time
+
+    # equal-fidelity incumbent rule: a best measured below the session's top
+    # rung (ASHA stopped before anything reached it) is a cheaper experiment
+    # on a different scale — the full-scale defaults measurement beats it by
+    # fiat rather than by a meaningless comparison
+    sub_fidelity = (
+        getattr(result, "best_fidelity", top_fidelity) < top_fidelity
+        and default_time < float("inf")
+    )
+    # defaults themselves might be the optimum; the log keeps everything
+    if default_time < best_time or sub_fidelity:
+        best_config, best_time = defaults, default_time
+
+    after = scheduler.stats_snapshot()
+    return TuneOutcome(
+        platform=platform,
+        algorithm=algorithm,
+        default_time=default_time,
+        best_time=best_time,
+        best_config=best_config,
+        evaluations=after["evaluations"] - before["evaluations"],
+        detail=result,
+        cache_stats={
+            k: after[k] - before[k] for k in ("fresh", "memo_hits", "cache_hits")
+        },
+        timeouts=after["timeouts"] - before["timeouts"],
+        infeasible_static=(
+            after["infeasible_static"] - before["infeasible_static"]
+        ),
+    )
+
+
+# ------------------------------------------------------------------- helpers
+
+
+def _factory_for(algorithm: str):
+    try:
+        return STRATEGIES[algorithm]
+    except KeyError:
+        raise ValueError(
+            f"unknown algorithm {algorithm!r} (use one of {sorted(STRATEGIES)})"
+        ) from None
+
+
+def _space_for(name: str) -> TunableSpace:
+    """Resolve a platform name to its shipped space. Cell platforms are
+    namespaced ``train/arch:shape`` — the prefix names the space."""
+    base = name.split("/", 1)[0]
+    if base in SPACES:
+        return SPACES[base]
+    if base == "wordcount":
+        raise NotImplementedError(
+            "the wordcount space comes with the port of apps/wordcount.py "
+            "(ROADMAP Queue 1 item 7)"
+        )
+    raise ValueError(
+        f"no shipped space for platform {name!r} — pass space= explicitly"
+    )
+
+
+def _accepts_kwarg(factory: Any, name: str) -> bool:
+    try:
+        sig = inspect.signature(factory)
+    except (TypeError, ValueError):  # builtins / exotic callables: assume yes
+        return True
+    params = sig.parameters.values()
+    if any(p.kind is p.VAR_KEYWORD for p in params):
+        return True
+    return name in sig.parameters
+
+
+_MISSING = object()  # serialization-failure sentinel — None is a legal value
+
+
+def _jsonable(obj: Any) -> Any:
+    """``obj`` if it round-trips through JSON, else ``_MISSING`` (NOT None:
+    a legitimately-None kwarg must not read as a serialization failure)."""
+    try:
+        json.dumps(obj)
+        return obj
+    except (TypeError, ValueError):
+        return _MISSING
+
+
+def _spec_ref(evaluator: Any) -> Optional[Dict[str, Any]]:
+    """JSON-able recipe for rebuilding an evaluator on resume — only when it
+    carries a dotted-path :class:`~repro_torch.core.executors.EvaluatorSpec` with
+    JSON-able arguments (a pickled instance or numpy payload does not
+    round-trip through the session manifest)."""
+    spec = getattr(evaluator, "spec", None)
+    if spec is None or not isinstance(getattr(spec, "target", None), str):
+        return None
+    ref = {
+        "target": spec.target,
+        "args": list(spec.args),
+        "kwargs": dict(spec.kwargs),
+        "construct": bool(spec.construct),
+    }
+    return ref if _jsonable(ref) is not _MISSING else None
+
+
+# ---------------------------------------------------------------------- study
+
+
+class Study:
+    """A persistent, resumable collection of tuning sessions over one storage
+    directory (``Study.create`` / ``Study.load`` / ``Study.open``), or an
+    ephemeral in-memory session holder (``Study()`` — what the deprecated
+    ``tune()`` shim uses).
+
+    Storage layout under ``path``:
+
+      - ``study.json``     manifest: version, creation time, seed, engine
+      - ``cache.jsonl``    persistent evaluation cache (platform-namespaced)
+      - ``trials.jsonl``   every trial of every session (the paper's log)
+      - ``sessions.jsonl`` session provenance: start/done records
+    """
+
+    MANIFEST = "study.json"
+    VERSION = 1
+
+    def __init__(
+        self,
+        path: Optional[Path] = None,
+        *,
+        engine: Optional[EngineConfig] = None,
+        seed: int = 0,
+        cache_path: Optional[Path] = None,
+        log_path: Optional[Path] = None,
+    ):
+        self.path = Path(path) if path else None
+        self.engine = engine or EngineConfig()
+        self.seed = int(seed)
+        if self.path is not None:
+            self.path.mkdir(parents=True, exist_ok=True)
+            self.cache_path: Optional[Path] = self.path / "cache.jsonl"
+            self.log_path: Optional[Path] = self.path / "trials.jsonl"
+            self._sessions_path: Optional[Path] = self.path / "sessions.jsonl"
+        else:  # in-memory study, optionally with explicit storage files
+            self.cache_path = Path(cache_path) if cache_path else None
+            self.log_path = Path(log_path) if log_path else None
+            self._sessions_path = None
+        self._sessions: List[Dict[str, Any]] = self._load_sessions()
+        self._outcomes: List[TuneOutcome] = []
+        self._cells: Dict[str, "StudyCell"] = {}
+        self._open_schedulers: List[TrialScheduler] = []
+
+    # ------------------------------------------------------------ lifecycle
+
+    @classmethod
+    def create(
+        cls,
+        path: Path,
+        *,
+        engine: Optional[EngineConfig] = None,
+        seed: int = 0,
+    ) -> "Study":
+        """Create a new study directory (manifest + empty storage). Refuses
+        to clobber an existing study — use :meth:`load` or :meth:`open`."""
+        path = Path(path)
+        manifest = path / cls.MANIFEST
+        if manifest.exists():
+            raise FileExistsError(
+                f"study already exists at {path} — use Study.load()/Study.open()"
+            )
+        study = cls(path, engine=engine, seed=seed)
+        manifest.write_text(json.dumps({
+            "version": cls.VERSION,
+            "created": time.time(),
+            "seed": study.seed,
+            "engine": study.engine.to_dict(),
+        }, indent=1))
+        return study
+
+    @classmethod
+    def load(cls, path: Path, *, engine: Optional[EngineConfig] = None) -> "Study":
+        """Load an existing study; ``engine`` overrides the stored defaults
+        for this process only (the manifest is not rewritten)."""
+        path = Path(path)
+        manifest = path / cls.MANIFEST
+        if not manifest.exists():
+            raise FileNotFoundError(
+                f"no study at {path} (missing {cls.MANIFEST}) — use Study.create()"
+            )
+        meta = json.loads(manifest.read_text())
+        return cls(
+            path,
+            engine=engine or EngineConfig.from_dict(meta.get("engine", {})),
+            seed=int(meta.get("seed", 0)),
+        )
+
+    @classmethod
+    def open(
+        cls,
+        path: Path,
+        *,
+        engine: Optional[EngineConfig] = None,
+        seed: int = 0,
+    ) -> "Study":
+        """Load the study at ``path`` if one exists, else create it — the
+        CLI's ``--study DIR`` semantics."""
+        if (Path(path) / cls.MANIFEST).exists():
+            return cls.load(path, engine=engine)
+        return cls.create(path, engine=engine, seed=seed)
+
+    def close(self) -> None:
+        """Release every scheduler the study holds open (cell schedulers and
+        their warm subprocess workers). Idempotent."""
+        for sched in self._open_schedulers:
+            sched.close()
+        self._open_schedulers = []
+        self._cells = {}
+
+    def __enter__(self) -> "Study":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # ------------------------------------------------------------- sessions
+
+    def optimize(
+        self,
+        platform: str,
+        algorithm: str,
+        evaluator: Any,
+        *,
+        space: Optional[TunableSpace] = None,
+        budget: Optional[int] = None,
+        seed: Optional[int] = None,
+        fixed: Optional[Dict[str, Any]] = None,
+        active_params: Optional[Sequence[str]] = None,
+        engine: Optional[EngineConfig] = None,
+        transfer: str = "off",
+        similarity: Optional[Similarity] = None,
+        **algo_kwargs,
+    ) -> TuneOutcome:
+        """Run one tuning session against the study's storage.
+
+        ``budget`` maps onto the strategy's trial-budget knob (strategies
+        declare it via ``budget_kwarg``, e.g. TPE's ``max_trials``); cached
+        history the strategy itself produced counts toward it, so repeating a
+        session over a complete cache proposes nothing fresh. ``seed``
+        defaults to the study seed for strategies that take one.
+
+        ``transfer`` turns on the cross-cell channel: ``"warm"`` seeds the
+        strategy's initial candidates from sibling-cell incumbents,
+        ``"prior"`` feeds sibling observations to TPE's densities with a
+        distance-decayed weight (see :meth:`histories_for`); sibling trials
+        never count toward ``budget``. ``similarity`` overrides the sibling
+        distance function — cell families whose namespaces don't follow the
+        train/serve arch:shape grammar (e.g. kernel cells) supply their own.
+        """
+        space = space or _space_for(platform)
+        eng = engine or self.engine
+        scheduler = self.scheduler(evaluator, platform=platform, engine=eng)
+        try:
+            return self._run_session(
+                scheduler, platform, algorithm, space, eng,
+                budget=budget, seed=seed, fixed=fixed,
+                active_params=active_params, evaluator=evaluator,
+                transfer=transfer, similarity=similarity,
+                **algo_kwargs,
+            )
+        finally:
+            scheduler.close()
+
+    def histories_for(
+        self,
+        platform: str,
+        *,
+        similarity: Optional[Similarity] = None,
+        max_siblings: Optional[int] = None,
+        max_distance: Optional[float] = None,
+    ) -> List[SiblingHistory]:
+        """Sibling-cell histories for ``platform``, closest first: one
+        :class:`~repro_torch.core.transfer.SiblingHistory` per *other* cache
+        namespace whose distance under ``similarity`` (default
+        :func:`~repro_torch.core.transfer.default_similarity` over arch, shape,
+        chips) is finite. Grouping is by each record's **stored** namespace,
+        so a ``train/a:s@512c`` chip-count variant is its own sibling, never
+        folded into ``train/a:s``, and legacy unplatformed records are
+        attributed to no cell at all. Only clean ``status="ok"`` records
+        qualify — a sibling's timeouts and errors are not evidence."""
+        if self.cache_path is None or not self.cache_path.exists():
+            return []
+        sim = similarity or default_similarity
+        me = parse_namespace(platform)
+        out: List[SiblingHistory] = []
+        for ns, records in read_cache_by_platform(self.cache_path).items():
+            if not ns or ns == platform:
+                continue
+            distance = sim(me, parse_namespace(ns))
+            if distance is None or not (distance < float("inf")):
+                continue
+            if max_distance is not None and distance > max_distance:
+                continue
+            trials = tuple(
+                (dict(rec["config"]), float(rec["time_s"]), rec.get("tag"))
+                for rec in records.values()
+                if "config" in rec and "time_s" in rec
+                and rec.get("status", "ok") == "ok"
+                and float(rec.get("fidelity", 1.0)) >= 1.0
+            )
+            if trials:
+                out.append(SiblingHistory(ns, float(distance), trials))
+        out.sort(key=lambda s: (s.distance, s.namespace))
+        return out[:max_siblings] if max_siblings is not None else out
+
+    def _run_session(
+        self,
+        scheduler: TrialScheduler,
+        platform: str,
+        algorithm: str,
+        space: TunableSpace,
+        eng: EngineConfig,
+        *,
+        budget: Optional[int],
+        seed: Optional[int],
+        fixed: Optional[Dict[str, Any]],
+        active_params: Optional[Sequence[str]],
+        evaluator: Any,
+        resumes: Optional[int] = None,
+        transfer: str = "off",
+        siblings: Optional[List[SiblingHistory]] = None,
+        similarity: Optional[Similarity] = None,
+        **algo_kwargs,
+    ) -> TuneOutcome:
+        misplaced = sorted({
+            "batch_size", "patience", "max_workers", "workers", "timeout_s",
+            "retries", "isolation", "clear_caches", "cache_path", "log_path",
+        } & set(algo_kwargs))
+        if misplaced:
+            raise ValueError(
+                f"optimize(): {', '.join(misplaced)} are engine/storage "
+                "knobs, not strategy kwargs — configure them on EngineConfig "
+                "(engine=...) or the study directory"
+            )
+        factory = _factory_for(algorithm)
+        if transfer not in TRANSFER_MODES:
+            raise ValueError(
+                f"transfer must be one of {TRANSFER_MODES}, got {transfer!r}"
+            )
+        if transfer != "off":
+            modes = getattr(factory, "transfer_modes", ())
+            if not getattr(factory, "supports_transfer", False) or not modes:
+                raise ValueError(
+                    f"algorithm {algorithm!r} does not support cross-cell "
+                    "transfer (supports_transfer is not set) — run with "
+                    "transfer='off'"
+                )
+            if transfer not in modes:
+                # e.g. gsft/crs asked for "prior": downgrade to the mode the
+                # strategy actually implements, and record THAT — provenance
+                # must never claim a prior that was really warm seeding
+                transfer = modes[-1] if "warm" not in modes else "warm"
+        # the learned cost surrogate: plumb EngineConfig.surrogate (or an
+        # explicit surrogate= strategy kwarg) into surrogate-capable
+        # strategies, with the cell namespace as prediction context. Its
+        # training set rides the sibling channel even when the Parzen
+        # transfer prior is off — cross-study transfer in model form
+        wants_surrogate = (
+            getattr(factory, "supports_surrogate", False)
+            and str(algo_kwargs.get("surrogate", eng.surrogate)) != "off"
+        )
+        if wants_surrogate:
+            # run_session injects the namespace (its ``platform`` argument)
+            # as the strategy's prediction context; only the mode rides here
+            algo_kwargs.setdefault("surrogate", eng.surrogate)
+        if transfer == "off" and not wants_surrogate:
+            siblings = None
+        elif siblings is None:  # resume passes the recorded set instead
+            siblings = self.histories_for(platform, similarity=similarity)
+        if budget is not None:
+            budget_kwarg = getattr(factory, "budget_kwarg", None)
+            if not budget_kwarg:
+                raise ValueError(
+                    f"algorithm {algorithm!r} does not define a budget knob — "
+                    "pass its own kwargs (e.g. samples_per_param for gsft, "
+                    "m/k/max_rounds for crs)"
+                )
+            algo_kwargs.setdefault(budget_kwarg, int(budget))
+        if "seed" not in algo_kwargs and _accepts_kwarg(factory, "seed"):
+            algo_kwargs["seed"] = self.seed if seed is None else int(seed)
+
+        sid = self._next_session_id()
+        # provenance that fails to round-trip through JSON is recorded as
+        # DROPPED, not silently as null — resume() refuses lossy records
+        # rather than re-running the session minus its constraints. That
+        # includes an explicitly-passed history= (it was budget-charged
+        # evidence in this session; a resume must not swap it for the cache).
+        dropped = [
+            k for k, v in algo_kwargs.items() if _jsonable(v) is _MISSING
+        ]
+        if fixed and _jsonable(dict(fixed)) is _MISSING:
+            dropped.append("fixed")
+        start_rec = {
+            "event": "start",
+            "session": sid,
+            "ts": time.time(),
+            "platform": platform,
+            "algorithm": algorithm,
+            "space": space.platform,
+            "budget": budget,
+            "seed": algo_kwargs.get("seed"),
+            "fixed": dict(fixed) if fixed and "fixed" not in dropped else None,
+            "active_params": list(active_params) if active_params else None,
+            "args": {
+                k: v for k, v in algo_kwargs.items()
+                if _jsonable(v) is not _MISSING
+            },
+            "engine": eng.to_dict(),
+            "log_path": str(scheduler.log_path) if scheduler.log_path else None,
+            "evaluator_spec": _spec_ref(evaluator),
+        }
+        if siblings is not None:
+            # the exact sibling set is session provenance: resume must replay
+            # THESE namespaces (and these trial-count prefixes), not whatever
+            # the cache holds by then — and must raise if one went missing.
+            # Recorded whenever the sibling channel was open (transfer OR a
+            # surrogate training set), even when the set came up empty
+            start_rec["transfer"] = {
+                "mode": transfer,
+                "siblings": [
+                    {"namespace": s.namespace, "distance": s.distance,
+                     "trials": len(s.trials)}
+                    for s in (siblings or [])
+                ],
+            }
+        if dropped:
+            start_rec["args_dropped"] = sorted(dropped)
+        if resumes is not None:
+            start_rec["resumes"] = resumes
+        self._record(start_rec)
+
+        try:
+            outcome = run_session(
+                scheduler, platform, algorithm, space,
+                fixed=fixed, active_params=active_params,
+                siblings=siblings, transfer=transfer,
+                **eng.run_kwargs(), **algo_kwargs,
+            )
+        except Exception as e:
+            # a deterministic failure (bad kwarg, broken strategy) closes the
+            # session so resume() can't latch onto it forever; interruptions
+            # (KeyboardInterrupt and harder) stay open — they ARE the resume
+            # case
+            self._record({
+                "event": "failed",
+                "session": sid,
+                "ts": time.time(),
+                "error": f"{type(e).__name__}: {e}",
+            })
+            raise
+        self._record({
+            "event": "done",
+            "session": sid,
+            "ts": time.time(),
+            "summary": outcome.summary(),
+        })
+        self._outcomes.append(outcome)
+        return outcome
+
+    # ------------------------------------------------- external session seam
+
+    _LIFECYCLE_EVENTS = ("start", "done", "failed", "cell")
+
+    def begin_session(
+        self,
+        platform: str,
+        algorithm: str,
+        *,
+        space: Optional[str] = None,
+        mode: str = "offline",
+        args: Optional[Dict[str, Any]] = None,
+    ) -> int:
+        """Open a session whose trials are produced OUTSIDE the scheduler
+        engine (the online serving controller) yet journaled with the same
+        provenance: a ``start`` record in ``sessions.jsonl`` carrying
+        ``mode`` (``"online"`` sessions are skipped by :meth:`resume` — the
+        serving driver re-enters them with the surviving baseline instead of
+        replaying a strategy budget). Returns the session id; close it with
+        :meth:`end_session`."""
+        sid = self._next_session_id()
+        self._record({
+            "event": "start",
+            "session": sid,
+            "ts": time.time(),
+            "platform": platform,
+            "algorithm": algorithm,
+            "space": space,
+            "mode": mode,
+            "args": {
+                k: v for k, v in (args or {}).items()
+                if _jsonable(v) is not _MISSING
+            },
+            "engine": self.engine.to_dict(),
+            "log_path": str(self.log_path) if self.log_path else None,
+        })
+        return sid
+
+    def record_session_event(
+        self, session: int, event: str, fields: Optional[Dict[str, Any]] = None
+    ) -> None:
+        """Journal one event record against an open session (the online
+        controller's guard decisions ride through here). Lifecycle event
+        names are reserved for the study itself."""
+        if event in self._LIFECYCLE_EVENTS:
+            raise ValueError(
+                f"event {event!r} is a reserved lifecycle event — "
+                "begin_session/end_session own those"
+            )
+        self._record({
+            "event": event,
+            "session": int(session),
+            "ts": time.time(),
+            **{k: v for k, v in (fields or {}).items()
+               if _jsonable(v) is not _MISSING},
+        })
+
+    def end_session(self, session: int, summary: Dict[str, Any]) -> None:
+        """Close a :meth:`begin_session` session with its ``done`` summary
+        (same record shape the engine path writes — :meth:`report` rows pick
+        the shared keys up with no special casing)."""
+        self._record({
+            "event": "done",
+            "session": int(session),
+            "ts": time.time(),
+            "summary": {
+                k: v for k, v in (summary or {}).items()
+                if _jsonable(v) is not _MISSING
+            },
+        })
+
+    def append_trial_record(self, rec: Dict[str, Any]) -> None:
+        """Append one trial-shaped record to the study's trial log — the
+        seam non-scheduler trial producers (per-window online measurements)
+        persist through, so :meth:`trials` and ``read_log`` see one stream.
+        No-op for an in-memory study with no log file."""
+        if self.log_path is None:
+            return
+        self.log_path.parent.mkdir(parents=True, exist_ok=True)
+        with self.log_path.open("a") as f:
+            f.write(jsonl_line({"ts": time.time(), **rec}) + "\n")
+
+    def resume(
+        self,
+        evaluator: Any = None,
+        *,
+        space: Optional[TunableSpace] = None,
+        engine: Optional[EngineConfig] = None,
+    ) -> TuneOutcome:
+        """Re-enter the most recent interrupted session (a ``start`` record
+        with no matching ``done``), paying only the unpaid remainder — every
+        trial the crashed session persisted replays from the cache, and a
+        history-aware strategy resumes with the budget it already spent.
+
+        Online serving sessions (``mode="online"``) are not resumable here:
+        their state is a surviving baseline, not an unpaid strategy budget —
+        ``repro_torch.launch.serve --online-tune`` re-enters them via
+        :func:`repro_torch.serving.journal.surviving_baseline`.
+
+        The evaluator is rebuilt from the session's stored
+        ``EvaluatorSpec`` recipe when it has one; otherwise pass
+        ``evaluator=`` explicitly.
+        """
+        done = {r["session"] for r in self._sessions if r["event"] == "done"}
+        resumes_of = {
+            r["session"]: r["resumes"] for r in self._sessions
+            if r["event"] == "start" and r.get("resumes") is not None
+        }
+        # a resume attempt closes its target only once it actually COMPLETES
+        # (a failed resume re-opens the original — its unpaid remainder is
+        # still owed), and completion propagates down resume CHAINS: if
+        # session 3 resumed session 2 which resumed session 1, session 3
+        # finishing pays off all three
+        completed = set(done)
+        frontier = True
+        while frontier:
+            frontier = {
+                target for sid, target in resumes_of.items()
+                if sid in completed and target not in completed
+            }
+            completed |= frontier
+        closed = completed | {
+            r["session"] for r in self._sessions if r["event"] == "failed"
+        }
+        open_recs = [
+            r for r in self._sessions
+            if r["event"] == "start" and r["session"] not in closed
+            and r.get("mode", "offline") != "online"
+        ]
+        if not open_recs:
+            raise ValueError(
+                "nothing to resume: every recorded session completed"
+            )
+        rec = open_recs[-1]
+        if rec.get("args_dropped"):
+            raise ValueError(
+                f"session {rec['session']} cannot be resumed faithfully: "
+                f"{', '.join(rec['args_dropped'])} did not round-trip through "
+                "the session manifest (non-JSON values) — re-run optimize() "
+                "with the original arguments instead"
+            )
+        if evaluator is None:
+            ref = rec.get("evaluator_spec")
+            if not ref:
+                raise ValueError(
+                    f"session {rec['session']} ({rec['platform']}/"
+                    f"{rec['algorithm']}) stored no evaluator recipe — pass "
+                    "evaluator= to resume()"
+                )
+            from repro_torch.core.executors import EvaluatorSpec
+
+            evaluator = EvaluatorSpec(
+                target=ref["target"], args=tuple(ref.get("args", ())),
+                kwargs=dict(ref.get("kwargs", {})),
+                construct=bool(ref.get("construct", True)),
+            ).resolve()
+        space = space or _space_for(rec.get("space") or rec["platform"])
+        eng = engine or EngineConfig.from_dict(rec.get("engine", {}))
+        kwargs = dict(rec.get("args") or {})
+        seed = kwargs.pop("seed", None)  # recorded post-injection; re-route
+        # a transfer (or surrogate-training) session resumes with the SAME
+        # sibling set it started with — rebuilt from the recorded namespaces
+        # and trial-count prefixes; a sibling namespace that disappeared from
+        # the cache is a hard error, never a silent no-transfer rerun. The
+        # record's presence (not its mode) gates the rebuild: a surrogate
+        # session stores mode="off" with a live sibling list
+        stored_transfer = rec.get("transfer")
+        transfer = (stored_transfer or {}).get("mode", "off")
+        siblings = (
+            self._siblings_from_record(rec, stored_transfer.get("siblings") or [])
+            if stored_transfer is not None else None
+        )
+        scheduler = self.scheduler(
+            evaluator, platform=rec["platform"], engine=eng,
+            # a session logging to a custom file (per-cell logs) must keep
+            # appending there — the remainder must not land elsewhere
+            log_path=Path(rec["log_path"]) if rec.get("log_path") else None,
+        )
+        try:
+            return self._run_session(
+                scheduler, rec["platform"], rec["algorithm"], space, eng,
+                budget=None, seed=seed, fixed=rec.get("fixed"),
+                active_params=rec.get("active_params"), evaluator=evaluator,
+                resumes=rec["session"], transfer=transfer, siblings=siblings,
+                **kwargs,
+            )
+        finally:
+            scheduler.close()
+
+    def _siblings_from_record(
+        self, rec: Dict[str, Any], stored: List[Dict[str, Any]]
+    ) -> List[SiblingHistory]:
+        """Rebuild a recorded sibling set from the cache: per namespace, the
+        first ``trials`` clean records in cache order (the append-order
+        prefix the original session saw — later sibling growth must not
+        change a resumed session's prior). Missing or shrunken namespaces
+        raise."""
+        grouped = (
+            read_cache_by_platform(self.cache_path)
+            if self.cache_path is not None and self.cache_path.exists() else {}
+        )
+        out: List[SiblingHistory] = []
+        problems: List[str] = []
+        for s in stored:
+            ns, want = s["namespace"], int(s["trials"])
+            trials = tuple(
+                (dict(r["config"]), float(r["time_s"]), r.get("tag"))
+                for r in grouped.get(ns, {}).values()
+                if "config" in r and "time_s" in r
+                and r.get("status", "ok") == "ok"
+            )[:want]
+            if len(trials) < want:
+                problems.append(f"{ns} ({len(trials)}/{want} records)")
+                continue
+            out.append(SiblingHistory(ns, float(s["distance"]), trials))
+        if problems:
+            raise ValueError(
+                f"session {rec['session']} cannot be resumed faithfully: its "
+                f"transfer prior used sibling namespaces no longer (fully) in "
+                f"the cache: {', '.join(problems)} — restore the cache or "
+                "re-run optimize() from scratch"
+            )
+        return out
+
+    # ---------------------------------------------------------------- cells
+
+    def has_cell(self, arch: str, shape: str) -> bool:
+        """Whether :meth:`cell` already holds a handle for this cell (so a
+        caller can reuse it without re-supplying setup arguments)."""
+        return f"{arch}:{shape}" in self._cells
+
+    def cell(
+        self,
+        arch: str,
+        shape: str,
+        *,
+        chips: Optional[int] = None,
+        evaluator: Any = None,
+        log_path: Optional[Path] = None,
+    ) -> "StudyCell":
+        """Handle for one (arch × shape) cell of a tuning matrix. Repeated
+        calls return the same handle, so the cell's sessions share one
+        scheduler (probe memo and all) on top of the study-wide cache — and
+        therefore a repeat call may not silently change the cell's setup:
+        explicitly passed ``chips``/``evaluator``/``log_path`` that conflict
+        with the existing handle's raise (its cached measurements were taken
+        under the first call's setup). ``chips=None`` means "no opinion"
+        (defaults to 256 on creation). The chip count is persisted with the
+        study, so the guard holds ACROSS processes too: reopening a study
+        with a conflicting explicit ``chips`` raises rather than silently
+        replaying the other topology's cached measurements (evaluator and
+        log_path conflicts are only detectable within one process)."""
+        raise NotImplementedError(
+            "Study.cell builds roofline cells; they come with the port's "
+            "compile-time analyses (ROADMAP Queue 1 item 10)"
+        )
+
+    # ------------------------------------------------------------ accessors
+
+    def scheduler(
+        self,
+        evaluator: Any,
+        *,
+        platform: str,
+        engine: Optional[EngineConfig] = None,
+        log_path: Optional[Path] = None,
+    ) -> TrialScheduler:
+        """A TrialScheduler wired to this study's storage — the seam for
+        drivers that run strategies directly (the curated hillclimb sweep).
+        The caller owns closing it (or hands it to the study via cells)."""
+        eng = engine or self.engine
+        return TrialScheduler(
+            evaluator,
+            platform=platform,
+            log_path=log_path or self.log_path,
+            cache_path=self.cache_path,
+            **eng.scheduler_kwargs(),
+        )
+
+    def trials(self, platform: Optional[str] = None) -> List[Dict[str, Any]]:
+        """Every logged trial record, optionally filtered to one platform."""
+        if self.log_path is None or not self.log_path.exists():
+            return []
+        return read_log(self.log_path, platform=platform)
+
+    def _candidates(self) -> List[Dict[str, Any]]:
+        """Successful measurements across the study, one file read: cache
+        records plus this process's outcomes (in-memory studies have no
+        cache file). Sub-fidelity records (ASHA's cheap rungs) are excluded —
+        a fast low-rung time is a cheaper experiment, never the study's
+        best."""
+        candidates: List[Dict[str, Any]] = []
+        if self.cache_path is not None:
+            candidates += [
+                {
+                    "platform": rec.get("platform"),
+                    "config": rec.get("config"),
+                    "time_s": float(rec["time_s"]),
+                }
+                for rec in iter_jsonl(self.cache_path)
+                if rec.get("status", "ok") == "ok" and "time_s" in rec
+                and float(rec.get("fidelity", 1.0)) >= 1.0
+            ]
+        for out in self._outcomes:
+            candidates.append({
+                "platform": out.platform,
+                "config": out.best_config,
+                "time_s": out.best_time,
+            })
+        return candidates
+
+    def best(self, platform: Optional[str] = None) -> Dict[str, Any]:
+        """Best successful measurement across the whole study (or one
+        platform): ``{"platform", "config", "time_s"}``."""
+        candidates = [
+            c for c in self._candidates()
+            if platform is None or c["platform"] == platform
+        ]
+        if not candidates:
+            where = f" (platform={platform!r})" if platform else ""
+            raise ValueError(f"no successful trials in study{where}")
+        return min(candidates, key=lambda r: r["time_s"])
+
+    def sessions(self) -> List[Dict[str, Any]]:
+        """Raw session provenance records (start/done events, file order)."""
+        return list(self._sessions)
+
+    def report(self) -> Dict[str, Any]:
+        """The paper's reduction table, one row per session, with
+        per-session cache/evaluation deltas (never lifetime totals)."""
+        done = {
+            r["session"]: r for r in self._sessions if r["event"] == "done"
+        }
+        failed = {
+            r["session"] for r in self._sessions if r["event"] == "failed"
+        }
+        rows = []
+        platforms = set()
+        for rec in self._sessions:
+            if rec["event"] != "start":
+                continue
+            sid = rec["session"]
+            platforms.add(rec["platform"])
+            tr = rec.get("transfer") or {}
+            row: Dict[str, Any] = {
+                "session": sid,
+                "platform": rec["platform"],
+                "algorithm": rec["algorithm"],
+                "status": ("done" if sid in done
+                           else "failed" if sid in failed
+                           else "interrupted"),
+                "transfer": tr.get("mode", "off"),
+            }
+            if tr.get("mode", "off") != "off":
+                row["transfer_siblings"] = len(tr.get("siblings") or [])
+            srg = (rec.get("args") or {}).get("surrogate", "off")
+            if srg != "off":
+                row["surrogate"] = srg
+                row["surrogate_siblings"] = len(tr.get("siblings") or [])
+            if rec.get("resumes") is not None:
+                row["resumes"] = rec["resumes"]
+            if rec.get("mode", "offline") != "offline":
+                row["mode"] = rec["mode"]
+            if sid in done:
+                s = done[sid].get("summary", {})
+                for k in ("default_time_s", "best_time_s", "reduction_pct",
+                          "evaluations", "timeouts", "infeasible_static",
+                          "cache_stats", "rungs", "best_fidelity",
+                          # online serving sessions: guard-decision counters
+                          "windows", "rollbacks", "promotions", "demotions",
+                          "rejections"):
+                    if k in s:
+                        row[k] = s[k]
+            rows.append(row)
+        best: Dict[str, Dict[str, Any]] = {}
+        for cand in self._candidates():  # one cache read for every platform
+            p = cand["platform"]
+            if p in platforms and (
+                p not in best or cand["time_s"] < best[p]["time_s"]
+            ):
+                best[p] = cand
+        best = dict(sorted(best.items()))
+        # the port runs no roofline probe compiles: core/roofline.py comes
+        # with the compile-time analyses (ROADMAP Queue 1 item 10)
+        return {
+            "study": str(self.path) if self.path else None,
+            "sessions": rows,
+            "best": best,
+            "probe_cache": None,
+        }
+
+    # -------------------------------------------------------------- plumbing
+
+    def _track(self, scheduler: TrialScheduler) -> None:
+        self._open_schedulers.append(scheduler)
+
+    def _next_session_id(self) -> int:
+        ids = [r["session"] for r in self._sessions if "session" in r]
+        return (max(ids) + 1) if ids else 1
+
+    def _record(self, rec: Dict[str, Any]) -> None:
+        self._sessions.append(rec)
+        if self._sessions_path is not None:
+            with self._sessions_path.open("a") as f:
+                f.write(jsonl_line(rec) + "\n")
+
+    def _load_sessions(self) -> List[Dict[str, Any]]:
+        if self._sessions_path is None:
+            return []
+        return iter_jsonl(self._sessions_path)
+
+
+# ----------------------------------------------------------------- studycell
+
+
+class StudyCell:
+    """One (arch × shape) roofline cell of a tuning matrix, bound to a study:
+    the port's roofline slice brings it (ROADMAP Queue 1 item 10)."""
+
+    def __init__(self, *args: Any, **kwargs: Any):
+        raise NotImplementedError(
+            "StudyCell runs the roofline evaluator; it comes with the port's "
+            "compile-time analyses (ROADMAP Queue 1 item 10)"
+        )

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper + the port's tuned-config table.
 
-Kernel subpackages (``flash_attention`` in this slice) each ship ``csrc/``
+Kernel subpackages (``flash_attention``, ``ssm_scan``) each ship ``csrc/``
 (the CUDA C++ source, built at first launch by :mod:`._build`), ``kernel.py``
 (the wrapper that launches it, beside a plain PyTorch version of the same
 function), ``ops.py`` (the public entry point with the routing rules) and
@@ -32,9 +32,12 @@ __all__ = [
     "TUNED_TABLE_ENV",
     "dtype_token",
     "flash_shape_class",
+    "invalidate_tuned_table_cache",
     "load_tuned_table",
     "parse_shape_class",
+    "rwkv6_shape_class",
     "shape_class_distance",
+    "ssm_shape_class",
     "table_key",
     "tuned_config",
 ]
@@ -42,8 +45,10 @@ __all__ = [
 TUNED_TABLE_ENV = "REPRO_TORCH_KERNEL_TUNED_TABLE"
 DEFAULT_TABLE_PATH = Path(__file__).with_name("tuned_table.json")
 
+_TABLE_VERSION = 1  # the "version" field write_tuned_entries stamps
+
 # one cache slot per resolved path: kernel call sites hit a dict lookup, not
-# the filesystem (a tuner that rewrites a table clears this)
+# the filesystem (write_tuned_entries clears it after writing a table)
 _table_cache: Dict[Path, Dict[str, Dict[str, Any]]] = {}
 
 
@@ -66,6 +71,18 @@ def flash_shape_class(q_shape: Tuple[int, ...], k_shape: Tuple[int, ...]) -> str
     b, s, hq, dh = q_shape
     hkv = k_shape[2]
     return f"b{b}s{s}h{hq}k{hkv}d{dh}"
+
+
+def rwkv6_shape_class(r_shape: Tuple[int, ...]) -> str:
+    """(B,S,H,Hd) → ``b{B}s{S}h{H}d{Hd}``."""
+    b, s, h, hd = r_shape
+    return f"b{b}s{s}h{h}d{hd}"
+
+
+def ssm_shape_class(dt_shape: Tuple[int, ...], n: int) -> str:
+    """(B,S,Di) + state size N → ``b{B}s{S}di{Di}n{N}``."""
+    b, s, di = dt_shape
+    return f"b{b}s{s}di{di}n{n}"
 
 
 _DIM_RE = re.compile(r"([a-z]+)(\d+)")
@@ -125,6 +142,11 @@ def load_tuned_table(path: Optional[Path] = None) -> Dict[str, Dict[str, Any]]:
             entries = {}
     _table_cache[p] = entries
     return entries
+
+
+def invalidate_tuned_table_cache() -> None:
+    """Drop every cached table (call after writing a new one)."""
+    _table_cache.clear()
 
 
 def tuned_config(

@@ -1,0 +1,178 @@
+"""Kernel autotuning driver — turn the Study tuner on the port's CUDA kernels.
+
+One cell per (kernel, dtype, shape-class); each trial launches one kernel
+variant on the card (numerics-gated against the ``ref.py`` oracle, then
+timed with CUDA events), and the study cache makes warm re-runs free. Tune
+the selective scan at the full-width Jamba cell with CRS and write the
+incumbent into the port's tuned table, which ``selective_scan`` reads when
+the caller passes no knobs:
+
+    PYTHONPATH=src python -m repro_torch.launch.kernel_tune \
+        --kernel ssm_scan --shapes 1x4096x16384x16 --dtype bf16 \
+        --strategy crs --study build/studies/kernels-cuda --write-table
+
+Shapes are ``x``-separated dims per kernel: flash ``B x S x Hq x Hkv x Dh``,
+ssm_scan ``B x S x Di x N`` (defaults in ``DEFAULT_SHAPES``). It runs on the
+card; ``--device cpu`` runs the kernels' plain torch versions instead (the
+CPU tests do). ``--kernel rwkv6``/``all``, ``--strategy asha``,
+``--isolation subprocess``, ``--pin-devices`` and ``--prefilter static``
+raise until the slices that port them (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+from typing import Tuple
+
+from repro_torch.core.kernel_tune import (
+    DEFAULT_SHAPES,
+    KERNEL_NAMES,
+    KERNEL_SPACES,
+    kernel_similarity,
+    make_kernel_evaluator,
+    tuned_entry,
+    write_tuned_entries,
+)
+from repro_torch.device import resolve_device
+from repro_torch.kernels import DEFAULT_TABLE_PATH
+from repro_torch.launch.tune import add_engine_args, engine_config, open_study
+
+
+def parse_shape(text: str) -> Tuple[int, ...]:
+    try:
+        return tuple(int(d) for d in text.lower().replace(",", "x").split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"shape must be x-separated ints (e.g. 2x256x4x2x64), got {text!r}"
+        )
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", default="all",
+                    choices=list(KERNEL_NAMES) + ["all"])
+    ap.add_argument("--shapes", nargs="*", type=parse_shape, default=None,
+                    help="shape tuples for --kernel (x-separated dims; "
+                         "default: DEFAULT_SHAPES sweep). Only valid with a "
+                         "single --kernel.")
+    ap.add_argument("--dtype", default="f32", choices=["f32", "bf16", "f16"])
+    ap.add_argument("--algorithm", "--strategy", dest="algorithm",
+                    default="tpe",
+                    choices=["gsft", "crs", "tpe", "random", "asha"])
+    ap.add_argument("--budget", type=int, default=12,
+                    help="trial budget per cell (tpe/random/asha)")
+    ap.add_argument("--samples", type=int, default=3, help="gsft grid samples")
+    ap.add_argument("--m", type=int, default=8, help="crs draws per round")
+    ap.add_argument("--k", type=int, default=3, help="crs survivors")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--inner", default="random", choices=["random", "tpe"])
+    ap.add_argument("--eta", type=float, default=3.0)
+    ap.add_argument("--min-fidelity", type=float, default=1.0 / 3.0)
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="timed runs per trial (best-of)")
+    ap.add_argument("--device", default=None,
+                    help="where the kernels run: the CUDA card (default; "
+                         "raises without one) or 'cpu' for their plain "
+                         "torch versions")
+    ap.add_argument("--tolerance", type=float, default=None,
+                    help="relative-error numerics gate (default per dtype)")
+    ap.add_argument("--transfer", default="off",
+                    choices=["off", "warm", "prior"],
+                    help="carry sibling shape-class evidence within the same "
+                         "kernel+dtype (kernel_similarity)")
+    ap.add_argument("--write-table", nargs="?", type=Path, default=None,
+                    const=DEFAULT_TABLE_PATH,
+                    help="persist each cell's incumbent into the tuned table "
+                         "(default path: the port's own "
+                         "src/repro_torch/kernels/tuned_table.json)")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="write the per-cell summary JSON")
+    add_engine_args(ap)
+    args = ap.parse_args(argv)
+    unported = {
+        "--kernel rwkv6": args.kernel == "rwkv6",
+        "--kernel all": args.kernel == "all",
+        "--strategy asha": args.algorithm == "asha",
+        "--isolation subprocess": args.isolation == "subprocess",
+        "--pin-devices": args.pin_devices is not None,
+        "--prefilter static": args.prefilter == "static",
+    }
+    for flag, given in unported.items():
+        if given:
+            raise NotImplementedError(
+                f"{flag} is not ported yet: rwkv6 comes with slice 3 of the "
+                "port, the others with their own items (ROADMAP Queue 1)"
+            )
+    device = resolve_device(args.device)
+
+    kernels = list(KERNEL_NAMES) if args.kernel == "all" else [args.kernel]
+    if args.shapes and len(kernels) > 1:
+        ap.error("--shapes needs a single --kernel (dims differ per kernel)")
+
+    if args.algorithm == "gsft":
+        budget, kwargs = None, dict(samples_per_param=args.samples)
+    elif args.algorithm == "crs":
+        budget = None
+        kwargs = dict(m=args.m, k=args.k, max_rounds=args.rounds,
+                      seed=args.seed)
+    elif args.algorithm == "asha":
+        budget = args.budget
+        kwargs = dict(inner=args.inner, eta=args.eta,
+                      min_fidelity=args.min_fidelity, seed=args.seed)
+    else:  # tpe / random
+        budget, kwargs = args.budget, dict(seed=args.seed)
+
+    summaries, table_updates = {}, {}
+    fresh = memo = cached = 0
+    study = open_study(args, engine_config(args))
+    with study:
+        for kernel in kernels:
+            shapes = args.shapes or DEFAULT_SHAPES[kernel]
+            for shape in shapes:
+                evaluator = make_kernel_evaluator(
+                    kernel, shape, args.dtype,
+                    repeats=args.repeats, device=device,
+                    tolerance=args.tolerance, seed=args.seed,
+                )
+                platform = evaluator.platform_key()
+                outcome = study.optimize(
+                    platform, args.algorithm, evaluator,
+                    space=KERNEL_SPACES[kernel], budget=budget,
+                    transfer=args.transfer, similarity=kernel_similarity,
+                    **kwargs,
+                )
+                summaries[platform] = outcome.summary()
+                stats = outcome.cache_stats or {}
+                fresh += stats.get("fresh", 0)
+                memo += stats.get("memo_hits", 0)
+                cached += stats.get("cache_hits", 0)
+                if outcome.best_config and outcome.best_time < float("inf"):
+                    table_updates.update(tuned_entry(
+                        kernel, args.dtype, evaluator.shape_class(),
+                        outcome.best_config, outcome.best_time,
+                        source=f"study:{args.study or 'ephemeral'}"
+                               f" algo={args.algorithm} seed={args.seed}",
+                    ))
+
+    report = {
+        "cells": summaries,
+        # aggregate across every cell's session — the cold/warm CI smoke
+        # asserts fresh == 0 on the warm re-run
+        "cache_stats": {"fresh": fresh, "memo_hits": memo,
+                        "cache_hits": cached},
+    }
+    if args.write_table is not None and table_updates:
+        path = write_tuned_entries(table_updates, args.write_table)
+        report["tuned_table"] = str(path)
+        report["tuned_entries"] = sorted(table_updates)
+    print(json.dumps(report, indent=1, default=str))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(report, indent=1, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

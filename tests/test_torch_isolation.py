@@ -122,7 +122,7 @@ def test_build_compiles_once_keyed_by_source(fake_nvcc):
 def test_every_cuda_source_is_found():
     from repro_torch.kernels import _build
 
-    assert set(_build.sources()) == {"flash_fwd"}
+    assert set(_build.sources()) == {"flash_fwd", "ssm_scan"}
 
 
 def test_reprolint_clean_over_src():

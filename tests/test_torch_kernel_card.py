@@ -1,4 +1,5 @@
-"""The CUDA kernels held against their plain torch versions on the card.
+"""The CUDA kernels (flash attention, selective scan) held against their plain
+torch versions on the card.
 
 This file imports neither JAX nor the reference package, so it runs where
 only the port is installed: ``PYTHONPATH=src python -m pytest -m gpu
@@ -49,3 +50,36 @@ def test_kernel_matches_plain_on_gpu():
             rtol, atol = CARD_TOL[dtype]
             a, r = out.float(), plain.float()
             assert ((a - r).abs() <= rtol * r.abs() + atol).all(), (dtype, s)
+
+
+@pytest.mark.gpu
+def test_ssm_kernel_matches_plain_on_gpu():
+    """The selective-scan kernel against its plain version: a ragged last
+    chunk, d_block above di, and a chunk past the 48 KB shared-memory
+    default, at both dtypes and every compiled N."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README)")
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    rng = np.random.default_rng(7)
+    for n, (chunk, d_block) in zip(ssm_kernel.STATE_DIMS,
+                                   ((64, 32), (16, 1024), (128, 96), (256, 64), (256, 128))):
+        for dtype in ("float32", "bfloat16"):
+            b, s, di = 2, 300, 160
+            arrs = [np.log1p(np.exp(rng.standard_normal((b, s, di), dtype=np.float32))),
+                    rng.standard_normal((b, s, di), dtype=np.float32),
+                    rng.standard_normal((b, s, n), dtype=np.float32),
+                    rng.standard_normal((b, s, n), dtype=np.float32),
+                    -np.exp(0.3 * rng.standard_normal((di, n), dtype=np.float32))]
+            x = [torch.from_numpy(a).to(getattr(torch, dtype)).cuda() for a in arrs]
+            before = ssm_kernel.LAUNCHES
+            out = ssm_kernel.ssm_scan(*x, chunk=chunk, d_block=d_block)
+            assert ssm_kernel.LAUNCHES == before + 1
+            plain = ssm_kernel.ssm_scan_plain(*x)
+            rtol, atol = CARD_TOL[dtype]
+            a, r = out.float(), plain.float()
+            assert ((a - r).abs() <= rtol * r.abs() + atol).all(), (n, dtype)
+            # through ops: d_block snapped to a divisor of di, chunk to S
+            out = ssm_ops.selective_scan(*x, chunk=chunk, d_block=d_block)
+            assert ((out.float() - r).abs() <= rtol * r.abs() + atol).all(), (n, dtype)
